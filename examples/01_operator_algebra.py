@@ -1,6 +1,6 @@
 """Tour of the lazy operator algebra.
 
-Run: PYTHONPATH=.. python 01_operator_algebra.py   (CPU or TPU)
+Run: PYTHONPATH=.. python 01_operator_algebra.py   (CPU or GPU)
 """
 
 import jax

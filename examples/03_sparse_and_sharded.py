@@ -19,7 +19,7 @@ n = 1024
 # --- sparse formats ---------------------------------------------------------
 A = (rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.02)).astype(np.float32)
 S_csr = lo.opSparse(A, format="csr")
-S_bsr = lo.opSparse(A, format="bsr")  # 8x128 TPU blocks
+S_bsr = lo.opSparse(A, format="bsr")  # 8x128 blocks
 v = jnp.asarray(rng.standard_normal(n).astype(np.float32))
 print("csr nnz:", S_csr.nnz, " rel err csr vs bsr:",
       float(jnp.linalg.norm(S_csr * v - S_bsr * v) / jnp.linalg.norm(S_csr * v)))
@@ -37,7 +37,7 @@ if jax.device_count() >= 2:
     out = lo.matvec_chain(chain_sh, v, 50)
     print("sharded chain finite:", bool(jnp.isfinite(out).all()))
 
-    # banded operators use explicit halo exchange (ppermute over ICI)
+    # banded operators use explicit halo exchange (ppermute)
     band = np.zeros((n, n), np.float32)
     for k in range(-3, 4):
         band += np.diag(rng.standard_normal(n - abs(k)).astype(np.float32), k)

@@ -1,15 +1,11 @@
-"""Precision tiers on TPU: f32-exact by default, bf16 storage for speed.
+"""Precision tiers: f32-exact by default, bf16 storage for speed.
 
 The library's contraction policy (core/precision.py) keeps f32 operators
-f32-exact on the MXU (TPU matmuls would otherwise silently truncate to
-bf16). Users opt into the fast tier by STORING bf16 data — and chains over
-operators that fit the on-chip budget additionally run MXU-bound instead
-of HBM-bound (utils/residency.py): at the 64 MiB bench shape the same
-matvec chain measures 94 µs/apply (f32, streamed) vs 13.6 µs (resident),
-and bf16 storage halves the footprint again.
+f32-exact (a float32 matmul at default precision may run in TF32 on a
+GPU). Users opt into the fast tier by STORING bf16 data, which halves the
+bytes every apply streams.
 
-Run: PYTHONPATH=/root/repo python examples/06_mixed_precision_chains.py
-(CPU-safe; the residency/perf effects show on a real TPU.)
+Run: PYTHONPATH=.. python 06_mixed_precision_chains.py
 """
 
 import jax
@@ -25,11 +21,10 @@ nbr = n // 128
 blocks = jnp.asarray(rng.standard_normal((nbr, 4, 128, 128)).astype(np.float32))
 cols = jnp.asarray(rng.integers(0, nbr, size=(nbr, 4)).astype(np.int32))
 
-# f32 tier: exact applies (HIGHEST precision on the MXU, free when
-# bandwidth-bound)
+# f32 tier: exact applies (HIGHEST precision, free when bandwidth-bound)
 op32 = lo.BSROperator(BSR(blocks=blocks, block_cols=cols, shape=(n, n)))
 
-# bf16 tier: half the stored bytes, single exact-for-bf16 MXU pass
+# bf16 tier: half the stored bytes, products accumulated in f32
 op16 = lo.BSROperator(
     BSR(blocks=blocks.astype(jnp.bfloat16), block_cols=cols, shape=(n, n))
 )
@@ -41,8 +36,7 @@ y16 = np.asarray(op16 @ (v.astype(jnp.bfloat16)), dtype=np.float64)
 rel = np.linalg.norm(y16 - y32) / np.linalg.norm(y32)
 print(f"bf16 tier deviation from f32-exact: {rel:.2e} (~bf16 resolution)")
 
-# Whole chains stay on device either way — the drivers pick up the
-# residency hint automatically for operators that fit on-chip:
+# Whole chains stay on device either way:
 w32 = lo.matvec_chain(op32, v, 100)
 w16 = lo.matvec_chain(op16, v.astype(jnp.bfloat16), 100)
 print("chain outputs finite:", bool(jnp.all(jnp.isfinite(w32))),

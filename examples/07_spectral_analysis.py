@@ -1,9 +1,8 @@
 """Matrix-free spectral analysis of an operator graph.
 
-Round-2+ capabilities working together on a pure operator (never
-densified): LOBPCG extremal eigenpairs, Hutch++ trace, Bekas diagonal
-probes, and a Lanczos opnorm — all batched block applies that ride the
-MXU on TPU.
+Capabilities working together on a pure operator (never densified):
+LOBPCG extremal eigenpairs, Hutch++ trace, Bekas diagonal probes, and a
+Lanczos opnorm — all batched block applies.
 
 Run: JAX_PLATFORMS=cpu python examples/07_spectral_analysis.py
 """

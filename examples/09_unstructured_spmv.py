@@ -1,15 +1,14 @@
-"""Unstructured sparse operators on TPU: routed SpMV, permutations, RCM.
+"""Unstructured sparse operators: CSR, routed SpMV, permutations, RCM.
 
 The reference delegates unstructured SpMV to SparseArrays CSC mul! on the
-host (reference: src/constructors.jl:25-27). On TPU there is no fast
-fine-grained gather, so linops_tpu provides three escalating answers:
+host (reference: src/constructors.jl:25-27). linops_tpu keeps it on the
+device:
 
-1. recover block structure (``format="auto"`` → native RCM + BSR packing,
-   the MXU path — fastest when the pattern cooperates);
-2. route genuinely scattered patterns through radix-128 Clos crossbars
-   (``format="routed"`` — lane gathers at ~100 G elem/s);
-3. conjugate by a Clos-routed permutation (``opPermutation``) to expose
-   banding to downstream partitioners.
+1. ``format="auto"`` packs block-structured patterns to BSR and leaves
+   scattered ones in CSR (one gather + segment sum);
+2. ``format="routed"`` runs the radix-128 Clos pipeline by name;
+3. ``opPermutation`` conjugates an operator (``reorder="rcm"`` recovers
+   banding, so the band packs to BSR).
 
 Run (CPU): python examples/09_unstructured_spmv.py
 """
@@ -30,7 +29,7 @@ n = 4096
 A = sp.random(n, n, density=16 / n, format="csr", random_state=0)
 A.data[:] = rng.standard_normal(A.nnz)
 
-op = lo.opSparse(A, format="auto")  # scattered -> Clos-routed
+op = lo.opSparse(A, format="auto")  # scattered -> CSR
 print(f"auto picked: {type(op).__name__}")
 
 x = rng.standard_normal(n)
@@ -39,13 +38,13 @@ print("forward  rel err:", np.linalg.norm(y - A @ x) / np.linalg.norm(A @ x))
 yt = np.asarray(op.T * x)
 print("adjoint  rel err:", np.linalg.norm(yt - A.T @ x) / np.linalg.norm(A.T @ x))
 
-# routed operators participate in the full algebra
+# sparse operators participate in the full algebra
 chain = 2.0 * (op.T @ op) + lo.opEye(n)
 z = np.asarray(chain * x)
 ref = 2.0 * (A.T @ (A @ x)) + x
 print("normal-equations chain rel err:", np.linalg.norm(z - ref) / np.linalg.norm(ref))
 
-# --- permutations as first-class TPU-fast operators -------------------------
+# --- permutations as first-class operators ----------------------------------
 perm = rng.permutation(n)
 P = lo.opPermutation(perm)
 print("P x == x[perm]:", bool(np.array_equal(np.asarray(P * x), x[perm])))
@@ -69,9 +68,9 @@ if native_available():
 
 # One-keyword version: opSparse(reorder="rcm") computes the RCM
 # permutation, reorders on the host, builds the inner operator through
-# the normal auto-format pipeline (banded patterns land on BSR — the MXU
-# path), and returns the sandwich Pᵀ·op(A[perm][:,perm])·P with
-# Clos-routed permutation applies. Flags transfer: the sandwich of a
+# the normal auto-format pipeline (banded patterns land on BSR), and
+# returns the sandwich Pᵀ·op(A[perm][:,perm])·P. Flags transfer: the
+# sandwich of a
 # symmetric operator is symmetric, so cg/lobpcg accept it directly.
 if native_available():
     sigma = rng.permutation(n)

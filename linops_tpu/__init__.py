@@ -1,11 +1,11 @@
-"""linops_tpu — a TPU-native, matrix-free linear-operator framework.
+"""linops_tpu — a matrix-free linear-operator framework in JAX.
 
-Brand-new JAX/XLA/Pallas/pjit design with the capabilities of
-LinearOperators.jl (see SURVEY.md): lazy operator algebra as an explicit
-pytree operator graph, every apply jit-compiled into one fused computation,
-quasi-Newton operators with device-resident ring buffers, sparse
-CSR/COO/BSR operators with Pallas kernels, and mesh-sharded partitioned
-operators for multi-chip scaling.
+A JAX/XLA design with the capabilities of LinearOperators.jl (see
+SURVEY.md): lazy operator algebra as an explicit pytree operator graph,
+every apply jit-compiled into one fused computation, quasi-Newton
+operators with device-resident ring buffers, sparse CSR/COO/BSR/ELL/DIA
+operators, and mesh-sharded partitioned operators for multi-device
+scaling.
 """
 
 from .core.base import (
@@ -247,8 +247,8 @@ __all__ = [
 
 
 # Reference-name aliases (LinearOperators.jl export names) so migrating
-# users find the exact identifiers they know; the TPU-native names are
-# the primary API (reference: src/LinearOperators.jl exports).
+# users find the exact identifiers they know; the names above are the
+# primary API (reference: src/LinearOperators.jl exports).
 TimedLinearOperator = TimedOperator
 AdjointLinearOperator = AdjointOperator
 TransposeLinearOperator = TransposeOperator

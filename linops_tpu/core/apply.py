@@ -10,7 +10,7 @@ trace time where the value is statically known, and is NaN-safe otherwise via
 reference: src/constructors.jl:66-78).
 
 jit caching: operators are pytrees, so re-applying an operator (or a new
-operator with the same graph structure) hits the compiled cache — the TPU
+operator with the same graph structure) hits the compiled cache — the
 analogue of the reference's zero-allocation contract
 (reference: test/test_linop_allocs.jl).
 """
@@ -192,7 +192,7 @@ def to_dense(op: LinearOperator, block_size: int = 4096):
 
 
 def apply_cache_sizes() -> dict:
-    """Compiled-cache sizes of the engine entry points — the TPU analogue of
+    """Compiled-cache sizes of the engine entry points — the analogue of
     the reference's zero-allocation assertions: tests check these do NOT grow
     across repeated applies (no recompilation in the hot path)."""
     out = {}

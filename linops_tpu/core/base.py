@@ -1,11 +1,11 @@
-"""Core operator abstraction for the TPU-native linear-operator framework.
+"""Core operator abstraction for the linear-operator framework.
 
 Design (see SURVEY.md §7): instead of the reference's opaque closure triples
 (reference: src/abstract.jl:46-59), every operator is an explicit, traceable
 node in an operator graph. Each node is registered as a JAX pytree, so a whole
 lazy-algebra expression (compose / sum / scale / adjoint / cat / kron / ...)
 is a nested pytree whose ``apply`` traces into ONE jaxpr and compiles into a
-single fused XLA/Pallas computation. Laziness = graph construction; evaluation
+single fused XLA computation. Laziness = graph construction; evaluation
 = jit-compiled graph traversal.
 
 Modes
@@ -324,10 +324,8 @@ class LinearOperator(abc.ABC):
     def apply_matrix_t(self, Mt, mode: str = "N"):
         """Row-panel apply: ``(op @ Mtᵀ)ᵀ`` for ``Mt`` of shape (k, n).
 
-        TPU tiled layouts pad an array's minor dimension to 128 lanes, so
-        a narrow (n, k) column panel wastes up to 128/k of every byte
-        moved; block methods (LOBPCG, multi-RHS solvers) therefore carry
-        panels TRANSPOSED as (k, n) rows and apply through this method.
+        Block methods (LOBPCG, multi-RHS solvers) carry panels TRANSPOSED
+        as (k, n) rows and apply through this method.
         The default is transpose → apply_matrix → transpose (paying the
         padded layout only inside the apply); operators whose kernel is
         shift/contraction-based override it with a native row-panel form."""

@@ -3,7 +3,7 @@
 Equivalent of the reference constructors (reference: src/constructors.jl):
 wrap a matrix (closures over mul!/transpose/adjoint, :15-29) or wrap user
 product functions (:99-111). Here the matrix lives on device as a pytree leaf
-and all three modes lower to MXU matmuls under jit.
+and all three modes lower to matmuls under jit.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ __all__ = ["MatrixOperator", "FunctionOperator", "make_operator", "aslinearopera
 
 
 class MatrixOperator(LinearOperator):
-    """Dense-matrix-backed operator. ``A @ v`` on the MXU; transpose/adjoint
+    """Dense-matrix-backed operator. ``A @ v`` is one matmul; transpose/adjoint
     modes avoid materializing Aᵀ by contracting on the other side."""
 
     _fields_children = ("A",)

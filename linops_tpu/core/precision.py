@@ -1,24 +1,20 @@
 """Matmul precision policy: precision follows storage dtype.
 
-TPU MXU contractions at DEFAULT precision truncate f32 inputs to bf16
-(~3 decimal digits), silently breaking the f32-exact semantics users of
+A float32 contraction at DEFAULT precision may run on reduced-precision
+matrix units: on the H100, XLA may hand it to the TF32 tensor cores (about
+three decimal digits), silently breaking the f32-exact semantics users of
 the reference get from BLAS (reference delegation points:
-/root/reference/src/constructors.jl:25-27, src/operations.jl:34). XLA may
-additionally hoist the f32→bf16 convert out of chain loops and cache the
-shrunken arrays in VMEM — fast, but not the arithmetic the dtype
-advertises.
+src/constructors.jl:25-27, src/operations.jl:34).
 
-Policy (applied to every library contraction that can reach the MXU):
+Policy (applied to every library contraction):
 
-- any bf16 input  → ``Precision.DEFAULT`` — the single bf16 pass IS exact
-  for bf16 storage; callers opt into MXU speed by storing bf16.
-- otherwise       → ``Precision.HIGHEST`` — f32-exact (3-pass bf16x9 on
-  TPU). Free on HBM-bound matvec-shaped contractions (measured 182.7 vs
-  183.9 µs/apply at the bench BSR shape); costs ~3x MXU throughput only
-  on compute-bound matmat shapes, where correctness-by-default wins.
-
-CPU/GPU backends ignore or honor the flag appropriately (f32 is native
-there), so the policy is a TPU correctness fix with no effect elsewhere.
+- any bf16 input  → ``Precision.DEFAULT`` — bf16 storage opts into the
+  tensor cores; products accumulate in float32.
+- otherwise       → ``Precision.HIGHEST`` — keeps float32 off TF32 (and
+  float64 in float64). Matvec-shaped contractions are bound by memory, so
+  this costs them nothing; compute-bound matmat shapes give up the TF32
+  rate (495 vs 67 TFLOP/s published for the H100 SXM), where
+  correctness-by-default wins.
 """
 
 from __future__ import annotations
@@ -54,8 +50,8 @@ def pvdot(a, b, **kw):
 def pcolumn_dot(U, V):
     """Per-column ``<u_j, v_j>`` of two (n, k) blocks under the policy.
 
-    A plain ``sum(conj(U) * V, axis=0)`` can be rewritten by XLA into an
-    MXU contraction at DEFAULT precision (bf16-truncating for f32), which
+    A plain ``sum(conj(U) * V, axis=0)`` can be rewritten by XLA into a
+    contraction at DEFAULT precision (TF32 for float32 on the GPU), which
     the precision-sensitive multi-RHS Krylov recurrences must not absorb."""
     return jnp.einsum(
         "ij,ij->j", jnp.conj(U), V,

@@ -1,13 +1,13 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The compute path is JAX/XLA/Pallas; host-side format conversion and graph
+The compute path is JAX/XLA; host-side format conversion and graph
 reordering — pure pointer-chasing the reference delegates to SparseArrays'
 C routines — is C++ here (SURVEY.md §2.1: driven by the build plan, not by
 reference native code, since the reference has none).
 
 The shared library is built from ``bsr_pack.cpp`` with g++ on first use and
-cached next to the source; everything degrades gracefully to the numpy
-fallbacks in sparse/formats.py if no compiler is available.
+cached next to the source. Callers that need it raise when it cannot be
+built.
 """
 
 from __future__ import annotations
@@ -99,12 +99,11 @@ def _check_int32(a, what: str):
         )
 
 
-def bsr_pack_csr(vals, cols, indptr, nrow, ncol, block_shape=(8, 128), pad_rows_to=1):
+def bsr_pack_csr(vals, cols, indptr, nrow, ncol, block_shape=(8, 128)):
     """CSR → (blocks, block_cols) BSR arrays via the native packer.
 
-    ``pad_rows_to``: round nbrow up to a multiple (the Pallas kernel needs
-    a multiple of 8). Returns numpy arrays (caller moves them to device).
-    Raises RuntimeError if the native library is unavailable.
+    Returns numpy arrays (caller moves them to device). Raises RuntimeError
+    if the native library is unavailable.
     """
     lib = _load()
     if lib is None:
@@ -116,17 +115,16 @@ def bsr_pack_csr(vals, cols, indptr, nrow, ncol, block_shape=(8, 128), pad_rows_
     cols = np.ascontiguousarray(cols, np.int32)
     indptr = np.ascontiguousarray(indptr, np.int32)
     nbrow = -(-nrow // bm)
-    nbrow_padded = -(-nbrow // pad_rows_to) * pad_rows_to
     counts = np.zeros(nbrow, np.int32)
     kmax = max(int(lib.bsr_count(cols, indptr, nrow, bm, bn, counts)), 1)
 
-    blocks = np.zeros((nbrow_padded, kmax, bm, bn), dtype=vals.dtype)
-    block_cols = np.zeros((nbrow_padded, kmax), np.int32)
+    blocks = np.zeros((nbrow, kmax, bm, bn), dtype=vals.dtype)
+    block_cols = np.zeros((nbrow, kmax), np.int32)
     fill = lib.bsr_fill_f32 if vals.dtype == np.float32 else lib.bsr_fill_f64
     if vals.dtype not in (np.float32, np.float64):
         raise TypeError(f"native packer supports f32/f64, got {vals.dtype}")
     fill(vals, cols, indptr, nrow, bm, bn, kmax,
-         blocks[:nbrow].reshape(-1), block_cols[:nbrow].reshape(-1))
+         blocks.reshape(-1), block_cols.reshape(-1))
     return blocks, block_cols
 
 

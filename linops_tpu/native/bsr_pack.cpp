@@ -1,7 +1,7 @@
 // Native CSR -> BSR packer + reordering helpers.
 //
 // The runtime side of the sparse subsystem (SURVEY.md §2.3 'Sparse storage
-// formats'): building the TPU block layout from raw CSR is pure host-side
+// formats'): building the BSR block layout from raw CSR is pure host-side
 // pointer-chasing — the kind of work the reference delegates to
 // SparseArrays' C routines — so it lives in C++ (the Python/numpy packer in
 // sparse/formats.py materializes the dense matrix: fine for tests, unusable

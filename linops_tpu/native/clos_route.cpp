@@ -7,8 +7,8 @@
 // elementwise equality of the emitted stage arrays.
 //
 // v2 (round 4): the v1 port re-sorted edges by src/dst with counting sorts
-// at EVERY recursion level and chased int64 global arrays (measured 1.5-2.2 s
-// at the 2^21 domain — it had become the pack bottleneck). This version
+// at EVERY recursion level and chased int64 global arrays (it had become
+// the pack bottleneck at the 2^21 domain). This version
 //   - keeps per-subproblem LOCAL int32 copies of (src, dst) so the Euler
 //     walk touches small contiguous memory,
 //   - maintains the by-src / by-dst edge orders across the recursion by

@@ -6,7 +6,7 @@ point (SURVEY.md #8). Here the identity is used in row-major form,
 
     (A ⊗ B) x  =  vec_row(A · (B · X_rowᵀ)ᵀ),   X_row = x.reshape(nA_cols, nB_cols)
 
-with both factors applied through their (batched, MXU-friendly) matrix
+with both factors applied through their (batched) matrix
 applies and nothing materialized.
 """
 

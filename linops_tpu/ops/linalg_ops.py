@@ -179,8 +179,8 @@ class LDLOperator(LinearOperator):
     """Inverse of a symmetric (possibly indefinite) matrix, factored once.
 
     The reference's opLDL (src/linalg.jl:60-75 + ext/
-    LinearOperatorsLDLFactorizationsExt.jl) uses an LDLᵀ factorization; on TPU
-    we factor once with partial-pivoted LU (jit-friendly, MXU-based) which
+    LinearOperatorsLDLFactorizationsExt.jl) uses an LDLᵀ factorization; here
+    we factor once with partial-pivoted LU (jit-friendly, on device) which
     handles the same symmetric-indefinite systems."""
 
     _fields_children = ("lu", "piv")

@@ -1,51 +1,30 @@
-"""Permutation operators, Clos-routed on TPU.
+"""Permutation operators.
 
 The reference composes permutations from ``opRestriction`` (reference:
-src/special-operators.jl:167-201), whose apply is ``x[I]`` — a fine-grained
-gather that runs ~3 orders below the streaming roofline on TPU (0.1 G
-elem/s measured). A permutation is a STATIC data movement, so it routes
-through the same radix-128 Clos network as the unstructured SpMV pipeline
-(sparse/routing.py): 3-5 lane-gather crossbars + XLA-transpose wirings at
-~100 G elem/s.
+src/special-operators.jl:167-201), whose apply is ``x[I]``. Here a
+permutation is its own operator with both index vectors stored, so every
+mode is one gather: ``P x = x[perm]`` and ``Pᵀ u = u[perm⁻¹]``.
 
-This unlocks bandwidth-reducing reorderings as first-class operators:
 ``opPermutation(rcm_permutation(...))`` conjugates a scattered operator
-into banded form (``P A Pᵀ``) while keeping applies TPU-fast.
+into banded form (``P A Pᵀ``, sparse/reorder.py).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..core.base import (LinearOperator, LinearOperatorException,
                          register_operator)
-from ..sparse.routed import _clos_size, _route_and_sum, _route_int8
-from ..sparse.routing import RADIX
 
 __all__ = ["PermutationOperator", "opPermutation"]
-
-
-def _build_stages(dest_n: np.ndarray, npad: int):
-    """Stage arrays routing position j -> dest_n[j], identity on the pad
-    tail. Returns a tuple of device int8 arrays (G1 NOT folded: the input
-    is runtime data)."""
-    dest = np.arange(npad, dtype=np.int64)
-    dest[: dest_n.shape[0]] = dest_n
-    # pad tail maps pad positions onto themselves only if dest_n is a
-    # permutation of [0, n) — asserted by the caller
-    return tuple(jnp.asarray(g) for g in _route_int8(dest))
 
 
 class PermutationOperator(LinearOperator):
     """``y = x[perm]`` (row-permutation matrix: ``P[i, perm[i]] = 1``).
 
-    Transpose/adjoint applies use a second routing program for the inverse
-    permutation (``Pᵀ = P⁻¹``: orthogonal). On TPU the crossbars run as
-    Pallas lane gathers; off-TPU (and for non-f32/bf16 dtypes) the same
-    stage arrays execute as jnp gathers, and tiny instances fall back to
-    the plain fancy-index gather.
+    Transpose/adjoint applies gather by the inverse permutation
+    (``Pᵀ = P⁻¹``: orthogonal).
 
     dtype contract: a permutation carries NO values of its own — applies
     preserve the input dtype exactly. The ``dtype`` property reports
@@ -55,8 +34,8 @@ class PermutationOperator(LinearOperator):
     chain's REPORTED dtype — the computed values are unaffected.
     """
 
-    _fields_children = ("stages", "stages_inv", "perm", "perm_inv")
-    _fields_aux = ("_n", "_npad")
+    _fields_children = ("perm", "perm_inv")
+    _fields_aux = ("_n",)
 
     def __init__(self, perm):
         super().__init__()
@@ -65,16 +44,10 @@ class PermutationOperator(LinearOperator):
         if not np.array_equal(np.sort(perm), np.arange(n)):
             raise LinearOperatorException("perm is not a permutation")
         self._n = int(n)
-        self._npad = int(_clos_size(n))
-        # y[i] = x[perm[i]]  <=>  element at j moves to slot inv[j]
         inv = np.empty(n, np.int64)
         inv[perm] = np.arange(n)
         self.perm = jnp.asarray(perm, jnp.int32)
         self.perm_inv = jnp.asarray(inv, jnp.int32)
-        self.stages = _build_stages(inv, self._npad)
-        # the inverse routing program packs lazily on the first T/H
-        # dispatch (bump) — forward-only users skip half the pack cost
-        self.stages_inv = None
 
     @property
     def nrow(self):
@@ -94,58 +67,28 @@ class PermutationOperator(LinearOperator):
 
     hermitian = symmetric
 
-    def _route(self, x, stages):
-        if self._npad < 4 * RADIX:
-            # tiny: the routing overhead isn't worth it anywhere
-            use_pallas = False
-        else:
-            use_pallas = (
-                jax.default_backend() == "tpu"
-                and jnp.dtype(x.dtype) in (jnp.dtype(jnp.float32),
-                                           jnp.dtype(jnp.bfloat16))
-            )
-        xp = jnp.pad(x, (0, self._npad - self._n)) if self._n < self._npad else x
-        a = _route_and_sum(xp.reshape(-1, RADIX), stages, use_pallas,
-                           g1_folded=False, w=1)
-        return a.reshape(-1)[: self._n]
-
-    def bump(self, mode: str, n: int = 1):
-        # NOTE: matmat(T/H) also lands here and packs a program its row
-        # gather never uses — bump carries no vector/matrix arity, and one
-        # wasted pack beats a missing one on the hot vector path
-        if (mode in ("T", "H") and self.stages_inv is None
-                and not isinstance(self.perm, jax.core.Tracer)):
-            self.stages_inv = _build_stages(
-                np.asarray(self.perm, np.int64), self._npad)
-        super().bump(mode, n)
-
     def _prod(self, v):
-        return self._route(v, self.stages)
+        return v[self.perm]
 
     def _tprod(self, u):
-        if self.stages_inv is None:
-            # in-jit first touch (no host bump ran): fall back to the
-            # plain gather — correct, slower; see RoutedCSROperator note
-            return u[self.perm_inv]
-        return self._route(u, self.stages_inv)
+        return u[self.perm_inv]
 
     def _ctprod(self, w):
         return self._tprod(w)
 
     def apply_matrix(self, M, mode: str = "N"):
-        # matrix RHS: an XLA row gather moves whole (k,)-rows — efficient
-        # for wide blocks, no per-element scatter involved. Mode "C"
-        # (conjugate, NO transpose) of a real permutation acts like "N".
+        # Mode "C" (conjugate, NO transpose) of a real permutation acts
+        # like "N".
         idx = self.perm if mode in ("N", "C") else self.perm_inv
         return M[idx]
 
     def _name(self):
-        return "Permutation operator (Clos-routed)"
+        return "Permutation operator"
 
     @staticmethod
     def _shard_child(op, arr, axis):
-        # routing stage arrays are interdependent index structures:
-        # replicate (parallel/sharded.py honors this rule per leaf)
+        # index vectors address the whole input: replicate
+        # (parallel/sharded.py honors this rule per leaf)
         from jax.sharding import PartitionSpec
 
         return PartitionSpec()
@@ -155,6 +98,5 @@ register_operator(PermutationOperator)
 
 
 def opPermutation(perm) -> PermutationOperator:
-    """Permutation operator ``(P x)[i] = x[perm[i]]`` with TPU-fast
-    Clos-routed applies (module docstring)."""
+    """Permutation operator ``(P x)[i] = x[perm[i]]``."""
     return PermutationOperator(perm)

@@ -3,7 +3,7 @@
 Reference counterpart: the LDLFactorizations extension — ``opLDL`` on a
 sparse matrix factors once with a *CPU* sparse solver and every apply is a
 CPU triangular solve (reference: ext/LinearOperatorsLDLFactorizationsExt.jl:5-36).
-The TPU story is the same shape: sparse direct factorization is inherently
+Here the story is the same shape: sparse direct factorization is inherently
 sequential pointer-chasing, so the factorization and solves stay on host
 (scipy SuperLU) and enter the jitted graph through ``jax.pure_callback``.
 For device-resident solves use ``opCholesky`` on a dense matrix, or iterate

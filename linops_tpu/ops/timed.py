@@ -102,15 +102,10 @@ class TimedOperator(LinearOperator):
     def matvec(self, v, mode: str = "N"):
         from ..core.apply import matvec
 
-        import numpy as _np
-
         slot = _SLOT[mode]
         t0 = time.perf_counter()
         with jax.profiler.TraceAnnotation(f"linops.{slot}"):
-            out = matvec(self, v, mode=mode)
-            # host fetch of one element: block_until_ready can be a no-op on
-            # remote relays, which would time only the dispatch
-            _np.asarray(out.ravel()[0])
+            out = jax.block_until_ready(matvec(self, v, mode=mode))
         dt = time.perf_counter() - t0
         rec = self.timings.setdefault(slot, [0, 0.0])
         rec[0] += 1

@@ -6,7 +6,7 @@ row slab and needs only its own x segment plus ``halo`` entries from each
 neighbor. The apply is an explicit ``shard_map`` program:
 
   1. kick off ``ppermute`` of the boundary segments to both neighbors
-     (rides ICI),
+     (over NVLink between GPUs),
   2. compute the interior contribution with the local x segment while the
      exchange is in flight (XLA schedules the collective asynchronously),
   3. add the halo contributions once the segments arrive.
@@ -195,8 +195,8 @@ class HaloPartitionedOperator(LinearOperator):
         if not jnp.iscomplexobj(self.A_int):
             return self._tprod(w)
         # Aᴴw = conj(Aᵀ conj(w)) — two fused elementwise conjs instead of
-        # rebuilding a conjugated operator clone per apply (round-1 VERDICT
-        # weak #8); reuses the cached transpose shard_map program.
+        # rebuilding a conjugated operator clone per apply; reuses the
+        # cached transpose shard_map program.
         fn = _halo_transpose_fn(self._mesh, self._axis)
         return jnp.conj(fn(self.A_int, self.A_left, self.A_right, jnp.conj(w)))
 

@@ -5,7 +5,7 @@ tiled over a 2-D device mesh ``(gy, gx)``; each device owns an
 ``(ny/py, nx/px)`` tile, and one apply exchanges ONE-cell edge strips
 with its four neighbors via ``ppermute`` (no corners needed for a
 5-point stencil; Dirichlet zero at the global boundary), overlapping the
-interior arithmetic while the strips ride ICI. Exactly FOUR
+interior arithmetic while the strips are in flight. Exactly FOUR
 collective-permutes per apply, zero all-gathers — the communication/
 computation ratio is O((by + bx) / (by·bx)), so weak scaling is flat
 until tiles stop covering the exchange latency.

@@ -1,12 +1,12 @@
 """Multi-host runtime initialization (SURVEY.md §5 'Distributed
 communication backend': the NCCL/MPI-equivalent is the JAX distributed
-runtime + ICI/DCN collectives).
+runtime + NCCL collectives).
 
-On a multi-host TPU slice each host runs the same program;
+On several hosts each process runs the same program;
 ``initialize_distributed()`` wires them into one JAX runtime so
-``jax.devices()`` spans the slice and every mesh built by
+``jax.devices()`` spans every host and every mesh built by
 ``make_mesh`` / ``shard_operator`` / ``banded_partition`` addresses all
-chips (ICI within a slice; DCN across slices is handled by the runtime).
+devices.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ def initialize_distributed(
 ) -> None:
     """Initialize the JAX distributed runtime (idempotent).
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (GKE/Cloud TPU metadata); arguments override for manual bring-up.
+    With no arguments, relies on the cluster environment's auto-detection
+    (JAX finds none on a bare GPU machine: pass ``coordinator_address``,
+    ``num_processes`` and ``process_id`` there).
     Call once per host before building meshes.
     """
     kwargs = {}

@@ -3,7 +3,7 @@
 The reference has no distribution story (SURVEY.md §2.1: no DP/TP/PP, no
 NCCL/MPI); this layer is the new first-class component (SURVEY.md §2.3
 'Distributed operator layer'): operators partitioned over a
-``jax.sharding.Mesh``, with XLA inserting ICI collectives from sharding
+``jax.sharding.Mesh``, with XLA inserting collectives from sharding
 annotations (the scaling-book recipe: pick a mesh, annotate shardings, let
 XLA do the rest).
 """

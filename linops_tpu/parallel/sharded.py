@@ -2,7 +2,7 @@
 
 Design (SURVEY.md §2.3 'Distributed operator layer'): operators are pytrees,
 so distribution = placing their array leaves with ``NamedSharding`` and
-letting GSPMD partition every jitted apply, inserting ICI collectives
+letting GSPMD partition every jitted apply, inserting collectives
 (psum for contracted-over-sharded dims, all_gathers where layouts change).
 This generalizes the reference's ``S`` storage-type kwarg — its single
 device-placement axis (reference: src/constructors.jl:15) — to

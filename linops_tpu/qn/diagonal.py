@@ -1,6 +1,6 @@
 """Diagonal quasi-Newton Hessian approximations.
 
-TPU-native redesign of the reference's diagonal QN family
+JAX redesign of the reference's diagonal QN family
 (reference: src/DiagonalHessianApproximation.jl). Each operator is a mutable
 host wrapper over a device diagonal ``d``; apply is the fused elementwise
 product ``d * v`` (same kernel as opDiagonal, reference

@@ -1,6 +1,6 @@
 """Limited-memory BFGS operators with device-resident ring-buffer state.
 
-TPU-native redesign of the reference L-BFGS operators
+JAX redesign of the reference L-BFGS operators
 (reference: src/lbfgs.jl). Differences, on purpose (SURVEY.md §7 design
 stance 2):
 
@@ -8,11 +8,11 @@ stance 2):
   but stacked device arrays of shape ``(mem, n)`` living in an immutable
   pytree ``LBFGSState``. The ring-buffer insert position is a traced int32
   scalar, so ``push`` compiles ONCE and every subsequent push is a cached
-  jit call (the TPU analogue of the reference's zero-allocation push,
+  jit call (the analogue of the reference's zero-allocation push,
   reference test/test_lbfgs.jl:208-217).
 - The forward product ``B v = v/γ + Σ bᵢ(bᵢᵀv) − aᵢ(aᵢᵀv)``
   (Nocedal & Wright Procedure 7.6; reference src/lbfgs.jl:173-202) is two
-  ``(mem, n)`` mat-vecs — fully parallel on the MXU/VPU, no sequential loop.
+  ``(mem, n)`` mat-vecs — fully parallel, no sequential loop.
 - The inverse two-loop recursion (Procedure 7.4; reference
   src/lbfgs.jl:117-154) has an inherent loop-carried scalar dependence; it is
   a ``lax.fori_loop`` over ``mem`` steps of one dot + one axpy each, which
@@ -137,10 +137,9 @@ def _compact_middle(state: LBFGSState, inverse: bool):
 
     G depends only on the SMALL state pieces (Grams, γ, ys, insert), so it
     is maintained at PUSH time and the hot applies run ZERO factorizations:
-    a mem-sized Cholesky / triangular-solve chain at apply time measured
-    ~90 µs of pure sequential latency on v5e (the r3→r4 forward-apply
-    regression, VERDICT r4 weak #1) — precomputing G turns both applies
-    into two (mem, n) passes + one (2mem)² mat-vec.
+    a mem-sized Cholesky / triangular-solve chain at apply time is pure
+    sequential latency — precomputing G turns both applies into two
+    (mem, n) passes + one (2mem)² mat-vec.
 
     The conventions match the BNS U factors the apply materializes
     (``_compact_apply``): forward W = [θS; Y], inverse W = [S; γY],
@@ -160,18 +159,8 @@ def _compact_middle(state: LBFGSState, inverse: bool):
     Empty slots carry unit R/M diagonal; their G rows/cols are exactly
     zero because the masked Grams are zero there.
 
-    PERFORMANCE-CRITICAL SHAPE (measured, tools/tpu_r5_batch3-9.py at
-    n=1e6, mem=16 on v5e, against a [182, 353] 1-to-2-pass roofline
-    window): the apply must build W per call as a dynamic-index gather
-    with a traced-scalar multiply on one half (exactly the form above).
-    XLA then (a) does NOT hoist the W build out of compiled chains, and
-    (b) fuses iteration i's output pass with iteration i+1's input pass,
-    so the memory streams ~1.5× per apply: 266-281 µs/apply in-chain.
-    Every variation tried was slower: hoisted/constant stacked W 346,
-    plain (unscaled) gathered concat 346, separate slot-order S/Y passes
-    + small scatter 395-399 (the r3-r4 regression), middle-stage form
-    (LU / Cholesky+triangular / matvec) moves it only when the solve
-    runs at apply time (+90 µs, the r3 forward bug)."""
+    The apply builds W per call as a dynamic-index gather with a
+    traced-scalar multiply on one half (exactly the form above)."""
     from jax.scipy.linalg import cho_solve, solve_triangular
 
     mem = state.S.shape[0]
@@ -242,7 +231,7 @@ def inverse_apply_compact(state: LBFGSState, x):
     """Compact-representation inverse apply (Byrd-Nocedal-Schnabel 1994):
     numerically identical to the two-loop recursion but expressed as TWO
     (2·mem, n) passes plus one small mat-vec — no sequential loop over
-    memory, so it runs at the 2-pass HBM roofline (the TPU-native form of
+    memory, so it runs at the 2-pass memory roofline (the compact form of
     reference src/lbfgs.jl:117-154; SURVEY.md §7 hard part 1). The middle
     matrix is push-maintained (``_compact_middle``)."""
     return _compact_apply(state, x, inverse=True)

@@ -1,6 +1,6 @@
 """Limited-memory SR1 operator with device-resident ring-buffer state.
 
-TPU-native redesign of the reference L-SR1 operator (reference:
+JAX redesign of the reference L-SR1 operator (reference:
 src/lsr1.jl). Two apply forms:
 
 - **compact (BNS thm 5.1, the default hot path)**:
@@ -52,8 +52,8 @@ class LSR1State(NamedTuple):
     opnorm_ub: jax.Array  # () upper bound on ‖B‖₂ (a-form; lazy)
     Minv: jax.Array  # (mem, mem) inverse of the compact middle M (chrono
     # coords), maintained at push so the hot apply runs ZERO
-    # factorizations (same finding as the L-BFGS G matrix: a mem-sized
-    # LU at apply time costs ~+90 µs of sequential latency on v5e)
+    # factorizations (same reason as the L-BFGS G matrix: a mem-sized
+    # LU at apply time is pure sequential latency)
 
 
 def _init_state(n: int, mem: int, dtype) -> LSR1State:
@@ -109,7 +109,7 @@ def _compact_minv(state: LSR1State):
     hot apply then runs matmul-only, and the per-apply U build stays a
     dynamic-index gather with a traced-scalar term — the form XLA does
     not hoist out of chains and fuses across iterations (see the L-BFGS
-    ``_compact_middle`` note; tools/tpu_r5_batch3-9.py)."""
+    ``_compact_middle`` note)."""
     M, order, valid = _compact_M(state)
     vmask2 = valid[:, None] & valid[None, :]
     return jnp.where(vmask2, jnp.linalg.inv(M), 0.0)

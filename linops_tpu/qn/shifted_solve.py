@@ -1,6 +1,6 @@
 """Shifted L-BFGS system solver: (B + σI) x = b for a forward L-BFGS operator.
 
-TPU-native implementation of the Erway-Jain-Marcia recursive
+JAX implementation of the Erway-Jain-Marcia recursive
 Sherman-Morrison-Woodbury method (reference: src/utilities.jl:151-289;
 "Shifted L-BFGS Systems", Optim. Methods Softw. 29(5), 2014).
 
@@ -119,7 +119,7 @@ def solve_shifted_system(B: LBFGSOperator, b, sigma, *, method: str = "compact")
     σ ≥ 0 (reference solve_shifted_system!, src/utilities.jl:207-248).
 
     ``method="compact"`` (default) uses the Woodbury/compact-form solve
-    (batched, TPU-native); ``method="ejm"`` runs the reference's
+    (batched); ``method="ejm"`` runs the reference's
     Erway-Jain-Marcia recursion. Returns the solution vector (functional;
     the reference writes into a preallocated ``x``).
 

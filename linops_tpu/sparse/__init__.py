@@ -1,5 +1,5 @@
 """Sparse storage formats and operators (SURVEY.md §2.3: 'Sparse storage
-formats' + 'Pallas apply kernels')."""
+formats')."""
 
 from .formats import COO, CSR, BSR, ELL, coo_from_dense, csr_from_dense, bsr_from_dense, ell_from_dense, ell_from_csr_parts
 from .ops import (COOOperator, CSROperator, RoutedCSROperator,

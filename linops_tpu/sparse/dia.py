@@ -1,11 +1,11 @@
-"""DIA (diagonal-offset) sparse operator — the TPU-ideal banded format.
+"""DIA (diagonal-offset) sparse operator — the banded format.
 
-No reference counterpart (SparseMatrixCSC covers bands generically); on TPU
-a banded/stencil matrix is best stored as its diagonals: the apply is a sum
-of elementwise products against statically-shifted views of x — pure VPU
-streaming with ZERO gathers or indices, fully fused by XLA. This is the
+No reference counterpart (SparseMatrixCSC covers bands generically); here
+a banded/stencil matrix is stored as its diagonals: the apply is a sum of
+elementwise products against statically-shifted views of x — streaming
+with ZERO gathers or indices, fully fused by XLA. This is the
 single-chip analogue of the halo-partitioned operator (parallel/halo.py),
-and the natural format for the 5/9-point Laplacians of BASELINE config 2.
+and the natural format for 5/9-point Laplacians.
 
 Convention: for offset o, ``diags[i, r] = A[r, r+o]`` (zero where out of
 range), so ``(A x)[r] = Σ_i diags[i, r] · x[r + offsets[i]]``.
@@ -77,9 +77,8 @@ class DIAOperator(LinearOperator):
         return jnp.pad(x[:o], (-o, 0))
 
     def _prod(self, v):
-        # pad once, take static slices, one fused multiply-sum — measured
-        # ~1.7x the per-term pad formulation on TPU (shifts cross lanes, so
-        # sharing one padded buffer matters).
+        # pad once, take static slices, one fused multiply-sum (one padded
+        # buffer shared by every term)
         mo = self._max_off
         n = self.nrow
         xp = jnp.pad(v, (mo, mo))
@@ -185,9 +184,8 @@ def laplacian_1d(n: int, dtype=jnp.float32) -> DIAOperator:
 def laplacian_2d(nx: int, ny: int, dtype=jnp.float32):
     """5-point Laplacian on an nx × ny grid (row-major), n = nx·ny.
 
-    Returns a ``Stencil2DOperator`` (grid-layout shifts — ~20x faster than
-    the flattened DIA form on TPU); ``laplacian_2d_dia`` keeps the DIA
-    representation."""
+    Returns a ``Stencil2DOperator`` (grid-layout shifts);
+    ``laplacian_2d_dia`` keeps the DIA representation."""
     from .stencil import Stencil2DOperator
 
     offsets = [(-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)]

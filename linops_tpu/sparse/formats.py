@@ -2,22 +2,20 @@
 
 New first-class component (SURVEY.md §2.3 'Sparse storage formats') — the
 reference delegates sparsity entirely to ``SparseArrays.SparseMatrixCSC``
-behind closures (reference: src/constructors.jl:25-27); on TPU we own the
-storage layout:
+behind closures (reference: src/constructors.jl:25-27); here the library
+owns the storage layout:
 
 - **COO / CSR** carry an explicit per-nnz ``rows`` vector (CSR keeps
   ``indptr`` too), so SpMV lowers to gather + ``segment_sum`` — one fused
   XLA computation, no host loops.
-- **BSR** (block sparse rows) is the TPU-native format: dense
-  ``(bm, bn)`` blocks sized to the VPU/MXU tiles (8×128 lanes and up), so
-  SpMV is a batched dense contraction on the MXU with only block-level
+- **BSR** (block sparse rows): dense ``(bm, bn)`` blocks (8×128 and up),
+  so SpMV is a batched dense contraction with only block-level
   indexing. Rows of blocks are padded to a uniform count with zero blocks
   pointing at block-column 0 (padding contributes exactly 0), keeping all
   shapes static for XLA (SURVEY.md §7 hard part 4).
 
 - **ELL** pads every row to a uniform slot count so forward SpMV is
-  gather + row-sum with no scatter (the least-bad unstructured layout on
-  TPU; see the class docstring for the measured reality).
+  gather + row-sum with no scatter.
 
 All four are registered pytrees → shardable, donatable, checkpointable.
 """
@@ -209,9 +207,7 @@ def bsr_from_dense(A, block_shape: Tuple[int, int] = (8, 128), tol: float = 0.0)
 
 class ELL(NamedTuple):
     """ELLPACK: every row padded to a uniform ``kmax`` slots. Forward SpMV
-    is gather + row-sum with NO scatter (``(vals · x[cols]).sum(1)``) —
-    measured ~2× the segment-sum CSR path on TPU for unstructured
-    patterns (both remain gather-bound; see sparse/ops.py docstring).
+    is gather + row-sum with NO scatter (``(vals · x[cols]).sum(1)``).
     Padding slots carry ``col=0, val=0`` and contribute exactly zero."""
 
     vals: jax.Array  # (nrow, kmax)

@@ -2,17 +2,14 @@
 
 Many "unstructured" matrices are bandable: a reverse-Cuthill–McKee
 permutation of the symmetrized pattern concentrates the nonzeros near the
-diagonal, where the TPU's fast paths live — dense-ish bands pack into
-8×128 BSR blocks whose applies run as MXU one-hot contractions at
-~600+ GB/s (windowed beyond VMEM residency), versus ~11.7 Gnnz/s for the
-Clos-routed scattered path. Per nnz that is an order of magnitude.
+diagonal, where dense-ish bands pack into BSR blocks.
 
 ``ReorderedOperator`` is the sandwich ``A = Pᵀ · A_r · P`` where
 ``A_r = A[perm][:, perm]`` (the RCM-reordered matrix, built as a normal
-sparse operator — BSR/windowed when the band structure allows) and ``P``
-is a Clos-routed ``PermutationOperator`` (``(P x)[i] = x[perm[i]]``,
-~64 µs at n=1M on TPU). Every mode is the same sandwich with the inner
-mode pushed through (P is real and orthogonal):
+sparse operator — BSR when the band structure allows) and ``P`` is a
+``PermutationOperator`` (``(P x)[i] = x[perm[i]]``). Every mode is the
+same sandwich with the inner mode pushed through (P is real and
+orthogonal):
 
     A  x = Pᵀ A_r  P x      Aᵀ u = Pᵀ A_rᵀ P u      Aᴴ w = Pᵀ A_rᴴ P w
 
@@ -20,8 +17,7 @@ so symmetry/hermitianness of the inner operator transfer verbatim.
 
 The reference has no reordering layer — it wraps whatever sparse matrix
 it is given (reference: src/constructors.jl:15-29); RCM there is the
-user's job via AMD/CUTHILLMCKEE packages. Here it is one keyword because
-the payoff is TPU-specific and large.
+user's job via AMD/CUTHILLMCKEE packages. Here it is one keyword.
 """
 from __future__ import annotations
 
@@ -50,11 +46,6 @@ class ReorderedOperator(LinearOperator):
                 f"the permutation size (got {inner.shape} vs {P.nrow})")
         self.inner = inner
         self.P = P
-        # the sandwich applies Pᵀ on the way out of EVERY mode — pack the
-        # inverse routing program now (n=0: no counter effect), not at
-        # first (possibly in-jit) dispatch where it would silently fall to
-        # the ~0.1 G elem/s fine-grained gather
-        P.bump("T", 0)
 
     @property
     def nrow(self):
@@ -99,7 +90,7 @@ class ReorderedOperator(LinearOperator):
     def apply_matrix(self, M, mode: str = "N"):
         # P on a matrix is an XLA whole-row gather (PermutationOperator
         # .apply_matrix) — cheap for wide RHS; the inner operator runs its
-        # own fast matrix path (BSR multi-RHS kernels etc.)
+        # own matrix path (BSR multi-RHS einsum etc.)
         M = self._check_mat(M, mode, axis=0)
         Z = self.P.apply_matrix(M, "N")
         Z = self.inner.apply_matrix(Z, mode)
@@ -134,7 +125,7 @@ register_operator(ReorderedOperator)
 def rcm_reordered_operator(sp, opsparse_kwargs: dict):
     """Build ``ReorderedOperator`` from a scipy CSR matrix: RCM on the
     symmetrized pattern → reorder → inner operator via ``opSparse`` →
-    Clos-routed permutation sandwich. Called by ``opSparse(reorder="rcm")``.
+    permutation sandwich. Called by ``opSparse(reorder="rcm")``.
     """
     import scipy.sparse as sps
 

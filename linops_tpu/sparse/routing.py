@@ -1,20 +1,16 @@
-"""Static permutation routing for TPU: radix-128 Clos networks.
+"""Static permutation routing: radix-128 Clos networks.
 
-The unstructured-SpMV kernel (kernels/unstructured_spmv.py) must move each
-product from its gather-friendly position (col-block-major, where fetching
-x[col] is a supported 128-lane dynamic gather) to its reduce-friendly
-position (row-major slots, where the row sum is a plain reshape-sum). That
-move is a STATIC permutation — the pattern is fixed at pack time.
+The routed unstructured SpMV (sparse/routed.py) moves each product from
+its gather-friendly position (col-block-major, where fetching x[col] is a
+gather within one 128-wide window) to its reduce-friendly position
+(row-major slots, where the row sum is a plain reshape-sum). That move is
+a STATIC permutation — the pattern is fixed at pack time.
 
-Primitive inventory on TPU (tools/probe_gather2.py, probe_benes.py):
-lane-wise dynamic gather within 128 lanes runs at ~49 G elem/s; per-element
-movement across sublanes does not exist (radix-2 Benes XOR stages measure
-~85 G elem/s per stage, but 2·log2(N)−1 ≈ 41 stages cap the chain at
-~2 Gnnz/s). A Clos network with radix 128 routes ANY permutation of
-N ≤ 128³ (= 2²¹) elements in FIVE crossbar stages, where every crossbar is
-exactly a 128-lane gather; the fixed inter-stage wirings are axis
-transposes, which XLA executes on the dedicated transpose unit at HBM
-bandwidth. Larger operators chunk by rows (each chunk routes independently).
+A Clos network with radix 128 routes ANY permutation of N ≤ 128³ (= 2²¹)
+elements in FIVE crossbar stages, where every crossbar is exactly a gather
+within 128-wide windows; the fixed inter-stage wirings are axis
+transposes. Larger operators chunk by rows (each chunk routes
+independently).
 
 This module computes the five per-stage gather-index arrays host-side:
     stage k: a[w, l] = a[w, idx_k[w, l]]   (within each 128-lane window w)
@@ -25,7 +21,7 @@ bipartite multigraph, obtained by repeated Euler splits (128 = 2⁷ halvings).
 
 The reference delegates unstructured SpMV to SparseArrays CSC mul! on the
 host (reference: src/constructors.jl:25-27); this replaces the scatter half
-of that delegation with a TPU-native routing network.
+of that delegation with a routing network.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """N-D grid stencil operator — shifts in grid layout, not vector layout.
 
-For operators on a d-dimensional grid, applying shifts to the FLATTENED
-vector makes unit offsets cross-lane rotates (measured ~656 µs for a 2048²
-5-point Laplacian); reshaping to the grid and shifting along the axes lets
-XLA fuse everything into one VMEM-resident pass (~34 µs, ~20x). The
-operator interface stays 1-D (vectors of length prod(grid), row-major);
+For operators on a d-dimensional grid, shifts of the FLATTENED vector
+need per-row boundary masks; reshaping to the grid and shifting along the
+axes lets XLA fuse everything into one pass over x and y. The operator
+interface stays 1-D (vectors of length prod(grid), row-major);
 reshapes are free under jit.
 
 Coefficients per offset are either scalars (constant stencil — minimal HBM

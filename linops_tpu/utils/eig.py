@@ -2,11 +2,12 @@
 
 Capability upgrade beyond the reference (LinearOperators.jl delegates
 eigenvalue work to Arpack/KrylovKit clients). LOBPCG (Knyazev 2001) is
-the TPU-natural choice: the entire iteration is block operations — one
+a natural fit for an accelerator: the entire iteration is block
+operations — one
 fresh ``(n, 3k)`` operator apply per iteration (recomputing the image
 keeps f32 stable: deriving it through the basis transforms was measured
 to diverge — see ``_lobpcg_jit``), a tiny ``(3k, 3k)`` Rayleigh–Ritz
-eigenproblem, and dense MXU-shaped basis updates — compiled into a
+eigenproblem, and dense matmul basis updates — compiled into a
 single ``lax.while_loop`` with static shapes.
 
 Robustness inside jit comes from BLOCKWISE orthonormalization: ``X`` is
@@ -37,7 +38,6 @@ from ..core.base import (
 )
 from ..core.precision import pmatmul
 from .estimate import _probe_dtype
-from .residency import chain_resident
 from .rng import fresh_key
 
 __all__ = ["lobpcg", "svds", "rsvd", "nystrom_preconditioner",
@@ -98,12 +98,11 @@ def _svqb_t(St):
                                              "has_M", "has_Y", "k_conv"))
 def _lobpcg_gram_jit(op, Mop, X0, Yc, tol, k, maxiter, largest, has_M,
                      has_Y, k_conv=None):
-    """LOBPCG iteration with SMALL-SPACE basis maintenance (round 5).
+    """LOBPCG iteration with SMALL-SPACE basis maintenance.
 
-    The r2-r4 body orthonormalized the [X | W | P] blocks with big-array
-    Gram-Schmidt + SVQB passes — measured 3.6 ms of the 7.3 ms/iter at
-    k=2 on the 2048² stencil (tools/tpu_r5_batch5.py: full 7285,
-    no-orth 3705 µs/iter). Here the SAME blockwise orthonormalization
+    The ``direct`` body orthonormalizes the [X | W | P] blocks with
+    big-array Gram-Schmidt + SVQB passes. Here the SAME blockwise
+    orthonormalization
     (2-pass GS against earlier blocks, then SVQB, block identity
     preserved) runs in COEFFICIENT space on one fresh (6k, 6k) joint
     Gram of B = [S_raw; A·S_raw]: per iteration the big-array work is
@@ -120,7 +119,6 @@ def _lobpcg_gram_jit(op, Mop, X0, Yc, tol, k, maxiter, largest, has_M,
     "A robust and efficient implementation of LOBPCG" (2018).
     """
     rdt = jnp.real(X0).dtype
-    op = chain_resident(op, X0)
 
     def rr_from_H(H, clipped):
         H = 0.5 * (H + jnp.conj(H).T)
@@ -245,19 +243,13 @@ def _lobpcg_jit(op, Mop, X0, Yc, tol, k, maxiter, largest, has_M, has_Y,
     # REJECTED: SVQB's 1/sqrt(w) rescaling amplifies the image drift
     # exponentially in f32 (NaN blow-up at iters 331-1071 on a 48² shifted
     # Laplacian) and under-reports residuals 10x even before blow-up —
-    # while saving only the 3k-vs-k apply width (~6% of the measured
-    # iteration cost on a stencil operator at n=1M).
+    # while saving only the 3k-vs-k apply width.
     #
-    # All panels are carried TRANSPOSED as (k, n) row panels: TPU tiled
-    # layouts pad the minor dimension to 128 lanes, so an (n, k) column
-    # panel moves up to 128/k× its logical bytes on every elementwise op
-    # and Gram/update matmul — measured 7.3 ms/iter at k=2 on the 2048²
-    # stencil, ~64 apply-equivalents, dominated by exactly that padding.
-    # Operator applies go through ``apply_matrix_t`` (native row-panel
-    # kernels where available, transpose-wrapped otherwise).
+    # All panels are carried TRANSPOSED as (k, n) row panels. Operator
+    # applies go through ``apply_matrix_t`` (native row-panel forms where
+    # available, transpose-wrapped otherwise).
     n = X0.shape[0]
     rdt = jnp.real(X0).dtype
-    op = chain_resident(op, X0)
 
     def rr_from_H(H, clipped):
         """Rayleigh–Ritz selection given the projected matrix ``H``."""
@@ -324,7 +316,7 @@ def _lobpcg_jit(op, Mop, X0, Yc, tol, k, maxiter, largest, has_M, has_Y,
         Wt, cW = _svqb_t(Wt)
         # X and W are now mutually orthonormal, so projecting P against
         # the joint [X | W] block equals the sequential projections but
-        # runs as ONE wider (better MXU-utilized) matmul pair per pass
+        # runs as ONE wider matmul pair per pass
         XWt = jnp.concatenate([Xt, Wt], axis=0)  # (2k, n)
         Pbt = gs_t(Pt, XWt)
         Pbt, cP = _svqb_t(Pbt)
@@ -354,15 +346,10 @@ def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
 
     ``block_size`` (int ≥ k) runs the iteration on a WIDER internal block
     and discards the extra Ritz pairs (convergence is tested on the
-    requested ``k`` only). Per-PAIR iteration cost improves with block
-    width on TPU (3.7 ms/pair/iter at k=2 vs 1.6 at k=8 on the 4.2M
-    stencil — sublane padding of (k, n) row panels at k < 8), but the
-    per-ITERATION cost grows (7.3 → 13.2 ms for 2 → 8), so padding pays
-    only when the wider block also cuts the iteration count (clustered
-    spectra) or the extra pairs are wanted anyway. Measured A/B on the
-    2048² stencil (k=2, tol 1e-4): padding to 8 LOSES ~1.8× on
-    time-to-solution — hence the default is None (no padding) and there
-    is deliberately no "auto".
+    requested ``k`` only). The per-ITERATION cost grows with the width, so
+    padding pays only when the wider block also cuts the iteration count
+    (clustered spectra) or the extra pairs are wanted anyway — hence the
+    default is None (no padding) and there is deliberately no "auto".
 
     Returns ``(theta, X, resnorms, iters)``: ``k`` eigenvalues (smallest
     by default, ``largest=True`` for the other end), the ``(n, k)``
@@ -380,10 +367,9 @@ def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
 
     ``basis`` selects the basis-maintenance strategy: ``"gram"``
     (default) runs the blockwise orthonormalization in COEFFICIENT space
-    on one fresh joint Gram per iteration — ~2× faster per iteration at
-    small k (7.3 → ~3.6 ms at k=2 on the 2048² stencil; the big-array
-    work drops to one operator image + two matmuls). ``"direct"`` is the
-    r2-r4 body with big-array Gram-Schmidt/SVQB passes — keep it when
+    on one fresh joint Gram per iteration (the big-array work drops to
+    one operator image + two matmuls). ``"direct"`` runs big-array
+    Gram-Schmidt/SVQB passes — keep it when
     the basis is so ill-conditioned that coefficient-space
     orthonormalization (squared-condition Gram) loses too much in f32.
     Both recompute the operator image fresh each iteration.
@@ -595,7 +581,6 @@ def svds(op, k: int = 1, *, largest: bool = True, tol: float = 1e-6,
 
 @functools.partial(jax.jit, static_argnames=("power_iters",))
 def _rsvd_jit(op, G, power_iters):
-    op = chain_resident(op, G)
     Y = op.apply_matrix(G, "N")  # (m, l)
     # subspace iteration with QR re-orthonormalization between passes
     # (Halko-Martinsson-Tropp 2011, Alg 4.4): sharpens the sketch on
@@ -619,7 +604,7 @@ def rsvd(op, k: int, *, oversample: int = 10, power_iters: int = 2, key=None):
     Returns ``(U, s, V)`` with ``op ~= U @ diag(s) @ V^H`` — the near-
     optimal rank-``k`` approximation for spectra with decay, from
     ``2*power_iters + 2`` block applies of width ``k + oversample``
-    (everything else is tall QR/SVD — pure MXU work). One-shot and much
+    (everything else is tall QR/SVD — dense matrix work). One-shot and much
     cheaper than :func:`svds` when the goal is the leading SUBSPACE of a
     numerically low-rank operator rather than tight extremal triplets;
     exact (to roundoff) when the operator's rank is at most ``k``.
@@ -717,7 +702,6 @@ register_operator(NystromPreconditioner)
 
 @functools.partial(jax.jit, static_argnames=())
 def _nystrom_sketch(op, Om):
-    op = chain_resident(op, Om)
     Y = op.apply_matrix(Om, "N")  # (n, l)
     # stability shift (FTU23 Alg 2.1): nu ~ sqrt(n) eps ||Y||
     rdt = jnp.real(Y).dtype

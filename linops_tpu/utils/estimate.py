@@ -2,8 +2,8 @@
 
 Capability upgrade beyond the reference: LinearOperators.jl exposes no
 trace/diagonal estimators and leaves clients to roll probe loops over
-``op * v``. On TPU the natural formulation is BATCHED — a ``(n, k)``
-Rademacher probe block goes through ``apply_matrix`` as one MXU
+``op * v``. On an accelerator the natural formulation is BATCHED — a
+``(n, k)`` Rademacher probe block goes through ``apply_matrix`` as one
 contraction per apply, so ``k`` probes cost roughly one streaming pass
 over the operator, not ``k``.
 
@@ -26,8 +26,7 @@ over the operator, not ``k``.
   captures ``b``'s spectral content.
 
 Both compile to a single XLA computation (operators ride their normal
-precision-policy apply paths) and pin the operator's arrays on-chip via
-the residency hint when they fit.
+precision-policy apply paths).
 """
 
 from __future__ import annotations
@@ -39,7 +38,6 @@ import jax.numpy as jnp
 
 from ..core.base import LinearOperator, LinearOperatorException
 from ..core.precision import pmatmul, pvdot
-from .residency import chain_resident
 from .rng import fresh_key
 
 __all__ = [
@@ -68,7 +66,6 @@ def _rademacher(key, shape, dtype):
 
 @functools.partial(jax.jit, static_argnames=())
 def _hutchinson(op, G):
-    op = chain_resident(op, G)
     AG = op.apply_matrix(G, "N")
     # per-probe quadratic forms g^H A g (real Rademacher: g^H == g^T)
     samples = jnp.sum(jnp.conj(G) * AG, axis=0)
@@ -80,7 +77,6 @@ def _hutchinson(op, G):
 
 @functools.partial(jax.jit, static_argnames=())
 def _hutchpp(op, S, G):
-    op = chain_resident(op, S)
     AS = op.apply_matrix(S, "N")
     Q, _ = jnp.linalg.qr(AS)  # (n, m) orthonormal sketch basis
     AQ = op.apply_matrix(Q, "N")
@@ -152,7 +148,6 @@ def estimate_trace(op, *, probes: int = 36, key=None, method: str = "hutchpp"):
 
 @functools.partial(jax.jit, static_argnames=())
 def _diag_probes(op, G):
-    op = chain_resident(op, G)
     AG = op.apply_matrix(G, "N")
     # Bekas et al. 2007: with Rademacher probes sum_k g_k * g_k == k
     # elementwise, so the estimator is the plain probe mean.
@@ -241,7 +236,6 @@ def _slq(op, V0, m, reorth, f):
     """Per-probe m-step Lanczos + Gauss quadrature; V0 is (n, k) with
     unit-norm columns. Returns the k per-probe estimates of v^H f(A) v
     (times n, folded in by the caller)."""
-    op = chain_resident(op, V0)
     rdt = jnp.real(V0).dtype
 
     def lanczos(v0):
@@ -337,7 +331,6 @@ def estimate_logdet(op, *, probes: int = 16, lanczos_steps: int = 30,
 
 @functools.partial(jax.jit, static_argnames=("m", "f"))
 def _funm_jit(op, b, m, f):
-    op = chain_resident(op, b)
     rdt = jnp.real(b).dtype
     nrm = jnp.linalg.norm(b)
     v0 = b / jnp.where(nrm > 0, nrm, 1.0)

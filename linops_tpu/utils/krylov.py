@@ -1,11 +1,10 @@
 """Jitted Krylov-style drivers: matvec chains, CG, MINRES-like iteration.
 
 The reference's clients (JSO solvers) call ``mul!`` in hot host loops; on
-TPU per-call dispatch would dominate (hundreds of µs through a remote
-runtime), so the idiomatic equivalent keeps the *whole iteration* on device:
-one jit containing a ``lax.fori_loop``/``while_loop`` whose body applies the
-operator graph. This is BASELINE config 2's "100-matvec Krylov-style chain"
-as a single compiled computation (SURVEY.md §6).
+an accelerator per-call dispatch would dominate, so the idiomatic
+equivalent keeps the *whole iteration* on device: one jit containing a
+``lax.fori_loop``/``while_loop`` whose body applies the operator graph
+(SURVEY.md §6).
 
 All drivers take the operator as a pytree argument, so new operators with
 the same graph structure hit the compiled cache.
@@ -17,7 +16,6 @@ import functools
 
 import jax
 from ..core.precision import pcolumn_dot, pmatmul, pvdot
-from .residency import chain_resident
 import jax.numpy as jnp
 from jax import lax
 
@@ -34,7 +32,6 @@ def matvec_chain(op: LinearOperator, v, iters: int = 100, mode: str = "N",
     normalizing each step to keep magnitudes bounded). Returns the final
     vector. The whole chain is ONE XLA computation: zero per-apply dispatch,
     compositions fused."""
-    op = chain_resident(op, v)
 
     def body(_, x):
         y = op.apply(x, mode)
@@ -60,7 +57,6 @@ def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
         return _cg_multi(op, b, x0, tol=tol, maxiter=maxiter, M=M)
     dt = jnp.result_type(b.dtype, op.dtype)
     b = b.astype(dt)
-    op, M = chain_resident((op, M), b)
     x = jnp.zeros_like(b) if x0 is None else x0.astype(dt)
     r = b - op.apply(x, "N")
     # preconditioner output is cast to the solver dtype so the while_loop
@@ -99,7 +95,6 @@ def _cg_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8,
     (their α is forced to 0), so late columns don't NaN early ones."""
     dt = jnp.result_type(B.dtype, op.dtype)
     B = B.astype(dt)
-    op, M = chain_resident((op, M), B)
     X = jnp.zeros_like(B) if X0 is None else X0.astype(dt)
 
     def prec(R):
@@ -152,7 +147,6 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8,
     n = b.shape[0]
     dt = jnp.result_type(b.dtype, op.dtype)
     b = b.astype(dt)
-    op, M = chain_resident((op, M), b)
     x = jnp.zeros_like(b) if x0 is None else x0.astype(dt)
     m = min(restart, n)
     bnorm = jnp.linalg.norm(b)
@@ -218,7 +212,6 @@ def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8,
         return _minres_multi(op, b, x0, tol=tol, maxiter=maxiter, M=M)
     dt = jnp.result_type(b.dtype, op.dtype)
     b = b.astype(dt)
-    op, M = chain_resident((op, M), b)
     x = jnp.zeros_like(b) if x0 is None else x0.astype(dt)
     rdt = jnp.zeros((), dt).real.dtype
     eps = jnp.finfo(rdt).eps
@@ -289,7 +282,6 @@ def _minres_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8,
     Converged columns freeze their solution update (phi forced to 0)."""
     dt = jnp.result_type(B.dtype, op.dtype)
     B = B.astype(dt)
-    op, M = chain_resident((op, M), B)
     X = jnp.zeros_like(B) if X0 is None else X0.astype(dt)
     rdt = jnp.zeros((), dt).real.dtype
     eps = jnp.finfo(rdt).eps
@@ -368,7 +360,6 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8,
     NaNs (scipy signals the same condition via ``info < 0``)."""
     dt = jnp.result_type(b.dtype, op.dtype)
     b = b.astype(dt)
-    op, M = chain_resident((op, M), b)
     x = jnp.zeros_like(b) if x0 is None else x0.astype(dt)
     rdt = jnp.zeros((), dt).real.dtype
     tiny = jnp.sqrt(jnp.finfo(rdt).tiny)  # catches exact/denormal zeros
@@ -430,7 +421,6 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8,
     (x, iterations, ‖Aᴴr‖ estimate)."""
     dt = jnp.result_type(b.dtype, op.dtype)
     b = b.astype(dt)
-    op = chain_resident(op, b)
     rdt = jnp.zeros((), dt).real.dtype
     n = op.shape[1]
     dampf = jnp.asarray(damp, rdt)
@@ -490,7 +480,6 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8,
 def power_iteration(op: LinearOperator, v0, iters: int = 50):
     """Largest-|eigenvalue| estimate of a square operator by power iteration
     in one compiled loop. Returns (eigenvalue estimate, eigenvector)."""
-    op = chain_resident(op, v0)
 
     def body(_, carry):
         v, _ = carry
@@ -525,7 +514,6 @@ def chebyshev(op: LinearOperator, b, lam_min, lam_max, x0=None, *,
     """
     dt = jnp.result_type(b.dtype, op.dtype)
     b = b.astype(dt)
-    op, M = chain_resident((op, M), b)
     x = jnp.zeros_like(b) if x0 is None else x0.astype(dt)
     rdt = jnp.zeros((), dt).real.dtype
     lam_min = jnp.asarray(lam_min, rdt)

@@ -191,8 +191,7 @@ def test_lobpcg_tight_tolerance_reachable(rng):
 
 
 def test_lobpcg_f32_stays_finite_and_residuals_honest():
-    """Review finding: carried A-images diverged to NaN in f32 (the TPU
-    production dtype) after a few hundred iterations, and the reported
+    """Review finding: carried A-images diverged to NaN in f32 after a few hundred iterations, and the reported
     residuals under-stated the true ||A x - theta x|| 10x. The fresh-apply
     formulation must stay finite and report residuals consistent with a
     fresh operator apply."""

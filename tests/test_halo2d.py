@@ -47,6 +47,28 @@ def test_halo2d_collective_contract(mesh2d, rng):
     assert counts.get("all-reduce", 0) == 0
 
 
+def test_collective_counts_combined_permutes():
+    """XLA:GPU merges permutes with the same peers (both strips of a
+    2-wide mesh axis) into one variadic instruction; the count is of the
+    arrays moved, so it matches the uncombined CPU program."""
+    from linops_tpu.parallel import hlo_collective_counts
+
+    pairs = "source_target_pairs={{0,1},{1,0}}"
+    split = "\n".join(
+        f"  %p.{i} = f32[1,8]{{1,0}} collective-permute(%s.{i}), {pairs}"
+        for i in range(4))
+    combined = "\n".join(
+        f"  %cp.{i} = ((f32[1,8]{{1,0}}, f32[1,8]{{1,0}}), u32[]) "
+        f"collective-permute-start(%s.{2 * i}, %s.{2 * i + 1}), {pairs}\n"
+        f"  %d.{i} = (f32[1,8]{{1,0}}, f32[1,8]{{1,0}}) "
+        f"collective-permute-done(%cp.{i})"
+        for i in range(2))
+    for text in (split, combined):
+        counts = hlo_collective_counts(text)
+        assert counts["collective-permute"] == 4, text
+        assert counts["all-gather"] == 0
+
+
 def test_halo2d_transpose_modes(mesh2d, rng):
     ny, nx = 12, 8
     cfs = jnp.asarray([4.0, -1.0, -2.0, -0.5, -1.5])  # nonsymmetric

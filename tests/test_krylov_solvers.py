@@ -1,7 +1,8 @@
 """MINRES / BiCGSTAB / LSQR driver tests (all on device, one jit each).
 
 The reference leaves iterative solvers to its JSO clients (Krylov.jl); on
-TPU the per-apply dispatch cost makes host loops non-viable, so these live
+an accelerator the per-apply dispatch cost makes host loops non-viable, so
+these live
 in-package (SURVEY.md §6, utils/krylov.py module docstring). Oracles are
 dense numpy solves / lstsq.
 """
@@ -226,55 +227,6 @@ def test_solvers_mixed_precision_preconditioner(rng):
     assert x.dtype == jnp.float32
     assert _relres(A, x, b) < 1e-4
 
-
-def test_chain_resident_exact_bf16(rng):
-    """The residency hint (utils/residency.py) multiplies big bf16 leaves
-    by a data-dependent exact 1 — results must be bit-identical, and small
-    or f32 operators must pass through untouched."""
-    from linops_tpu.utils import residency as res
-    n = 1024
-    A = rng.standard_normal((n, n)).astype(np.float32)
-    from linops_tpu.sparse.formats import bsr_from_dense, BSR as BSRfmt
-    b = bsr_from_dense(A, (8, 32))
-    op16 = lo.BSROperator(
-        BSRfmt(blocks=b.blocks.astype(jnp.bfloat16), block_cols=b.block_cols,
-               shape=b.shape))
-    v = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-    # force the hint to engage at this small size
-    old = res._MIN_LEAF_BYTES
-    res._MIN_LEAF_BYTES = 1
-    try:
-        got = np.asarray(lo.matvec_chain(op16, v, 7))
-    finally:
-        res._MIN_LEAF_BYTES = old
-    # manual loop oracle (no hint at default threshold)
-    x = v
-    for _ in range(7):
-        y = op16 @ x
-        x = y / jnp.linalg.norm(y)
-    np.testing.assert_array_equal(got, np.asarray(x))
-    # sub-threshold pass-through: same object tree (no leaf touched)
-    opf = lo.LinearOperator(jnp.asarray(A[:64, :64]))
-    hinted = res.chain_resident(opf, v[:64])
-    assert hinted.A is opf.A
-    # over-budget f32 pass-through (budget check without allocating: fake
-    # big leaves by lowering the budget)
-    old_budget = res._BUDGET_BYTES
-    res._BUDGET_BYTES = 1 << 20
-    try:
-        opf2 = lo.LinearOperator(jnp.asarray(A))  # 4 MiB > 1 MiB budget
-        hinted2 = res.chain_resident(opf2, v)
-        assert hinted2.A is opf2.A
-    finally:
-        res._BUDGET_BYTES = old_budget
-    # f32 within budget: rematerialized but exact
-    opf3 = lo.LinearOperator(jnp.asarray(A))
-    hinted3 = res.chain_resident(opf3, v)
-    assert hinted3.A is not opf3.A
-    np.testing.assert_array_equal(np.asarray(hinted3.A), np.asarray(opf3.A))
-
-
-# ---------------------------------------------------------------- multi-RHS CG
 
 def test_cg_multi_rhs(rng):
     """2-D b solves all k systems in one loop over apply_matrix; each

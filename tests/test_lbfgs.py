@@ -292,7 +292,7 @@ def test_lbfgs_positive_eigenvalues(rng):
 
 
 def test_lbfgs_no_recompile(rng):
-    """TPU analogue of the reference zero-allocation contract
+    """Analogue of the reference zero-allocation contract
     (test/test_lbfgs.jl:180-218): pushes and applies after the first hit the
     jit cache — no recompilation."""
     n, mem = 50, 8

@@ -43,7 +43,7 @@ def test_packed_operator_matvec(rng):
 
     n = 300
     A = scipy_sparse.random(n, n, density=0.03, random_state=2, dtype=np.float64).tocsr()
-    blocks, bcols = bsr_pack_csr(A.data, A.indices, A.indptr, n, n, (8, 32), pad_rows_to=8)
+    blocks, bcols = bsr_pack_csr(A.data, A.indices, A.indptr, n, n, (8, 32))
     op = lo.BSROperator(BSR(jnp.asarray(blocks), jnp.asarray(bcols), (n, n)))
     v = rng.standard_normal(n)
     assert_close(op * v, A @ v)

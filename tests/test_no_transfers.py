@@ -1,4 +1,4 @@
-"""TPU analogue of the reference's zero-allocation tests (SURVEY.md §4,
+"""Analogue of the reference's zero-allocation tests (SURVEY.md §4,
 reference test/test_linop_allocs.jl): after warmup, the hot paths must
 perform NO implicit host<->device transfers (jax.transfer_guard) and no
 recompilation (cache-size assertions live in test_lbfgs/test_linop).

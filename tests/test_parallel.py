@@ -119,7 +119,7 @@ def test_sharded_stencil(mesh, rng):
 
 def test_sharded_lbfgs_push_matches_unsharded(mesh, rng):
     """A push on the SHARDED state produces the same state as the unsharded
-    push (round-1 VERDICT weak #5: only the apply was asserted before)."""
+    push."""
     from linops_tpu.qn.lbfgs import _push_plain
 
     P_dev = mesh.devices.size
@@ -144,7 +144,7 @@ def test_sharded_lbfgs_push_matches_unsharded(mesh, rng):
 
 
 def test_sharded_sparse_operators(mesh, rng):
-    """Sparse storage pytrees get explicit partition rules (ADVICE round 1):
+    """Sparse storage pytrees get explicit partition rules:
     BSR splits block-rows, CSR/COO split the nnz axis; applies match."""
     import scipy.sparse as sps
     from jax.sharding import PartitionSpec as P
@@ -180,7 +180,7 @@ def test_sharded_sparse_operators(mesh, rng):
 
 def test_sharded_replication_warns(mesh, rng):
     """Non-divisible QN n / sparse nnz fall back to replication WITH a
-    warning (round-1 VERDICT weak #5: it used to be silent)."""
+    warning."""
     P_dev = mesh.devices.size
     n = 16 * P_dev + 1
     H = lo.InverseLBFGSOperator(n, mem=2)
@@ -253,19 +253,6 @@ def test_structural_flags_survive_sharding(mesh, rng):
     th, X, res, it = lo.lobpcg(H_sh, k=1, tol=1e-6, maxiter=200,
                                key=jax.random.PRNGKey(0))
     assert np.isfinite(float(th[0]))
-
-
-def test_ici_projection_model():
-    """The v5e ICI projection (docs/distributed.md) carries every path and
-    meets the BASELINE >=75% row at production per-device sizes."""
-    from linops_tpu.parallel.scaling_bench import ici_projection
-
-    p = ici_projection(n_devices=8, m_per_dev=2048, band=3)
-    assert p["halo2d_weak"] >= 0.75
-    assert p["gspmd_strong"] >= 0.75
-    assert p["halo_weak_m1e6"] >= 0.75
-    assert 0 < p["halo_weak_rows_per_dev_for_75pct"] < 1_000_000
-    assert p["meets_baseline_75pct_at_production_sizes"]
 
 
 def test_shard_routed_and_permutation_operators(rng):

@@ -54,12 +54,12 @@ def test_rcm_sandwich_all_modes():
 
 def test_rcm_recovers_band_structure():
     # scrambled dense-banded f32: auto must pick BSR on the REORDERED
-    # matrix (the scrambled pattern would land on routed) — the whole
-    # point of the reorder keyword: the band recovers the MXU path
+    # matrix (the scrambled pattern would land on CSR) — the whole point
+    # of the reorder keyword: the band recovers the block path
     Asc, A = _scrambled_banded(4096, 56, seed=7)
     op = lo.opSparse(Asc, format="auto", reorder="rcm", dtype=np.float32)
     scrambled = lo.opSparse(Asc, format="auto", dtype=np.float32)
-    assert isinstance(scrambled, lo.RoutedCSROperator)
+    assert type(scrambled) is lo.CSROperator
     inner = op.inner
     assert isinstance(inner, lo.BSROperator)
     # the inner block structure must be a narrow band: a width-113 band

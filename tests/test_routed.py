@@ -1,8 +1,7 @@
 """Clos-routed unstructured SpMV: pack + device pipeline vs scipy oracle.
 
-CPU tier (conftest): the pipeline runs with jnp gathers (use_pallas=False
-path); the Pallas kernels are TPU-only and share the exact same layout
-contract (sparse/routing.py::clos_apply is the numpy oracle of both).
+The pipeline is plain jnp gathers and transposes;
+sparse/routing.py::clos_apply is its numpy oracle.
 """
 
 import numpy as np
@@ -36,7 +35,7 @@ def test_routed_matvec_oracle(n_r, n_c, density, w):
     A = _random_csr(n_r, n_c, density, seed=n_r + n_c)
     p = pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=w)
     x = np.random.default_rng(1).standard_normal(n_c)
-    y = np.asarray(routed_matvec(p, x, use_pallas=False))
+    y = np.asarray(routed_matvec(p, x))
     ref = A @ x
     np.testing.assert_allclose(y, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
 
@@ -48,7 +47,7 @@ def test_routed_matvec_chunked(monkeypatch):
     p = pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=8)
     assert p.vals.shape[0] > 1  # really chunked
     x = np.random.default_rng(2).standard_normal(2500)
-    y = np.asarray(routed_matvec(p, x, use_pallas=False))
+    y = np.asarray(routed_matvec(p, x))
     # chunk contributions sum in unroll order; tolerance covers the
     # summation-order ulps of the f64 oracle comparison
     np.testing.assert_allclose(y, A @ x, rtol=1e-11)
@@ -64,7 +63,7 @@ def test_routed_handles_empty_and_heavy_rows():
     A.eliminate_zeros()
     p = pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=8)
     x = rng.standard_normal(n_c)
-    y = np.asarray(routed_matvec(p, x, use_pallas=False))
+    y = np.asarray(routed_matvec(p, x))
     np.testing.assert_allclose(y, A @ x, rtol=1e-12)
     assert y[5] == 0.0
 
@@ -125,11 +124,14 @@ def test_routed_operator_complex_and_symmetric():
 
 
 def test_routed_auto_format_picks_routed_for_scattered():
+    """format='auto' leaves a scattered pattern in plain CSR (measured
+    faster than the routed pipeline on the GPU, forward and transpose);
+    'routed' stays available by name."""
     import linops_tpu as lo
 
     A = _random_csr(4096, 4096, 16 / 4096, seed=17)  # scattered, small
     op = lo.opSparse(A, format="auto")
-    assert isinstance(op, lo.RoutedCSROperator)
+    assert type(op) is lo.CSROperator
     v = np.random.default_rng(1).standard_normal(4096)
     np.testing.assert_allclose(np.asarray(op * v), A @ v, rtol=1e-12)
 
@@ -145,27 +147,6 @@ def test_routed_backend_xla_matches():
         np.asarray(data_op * v), np.asarray(xla_op * v), rtol=1e-12)
 
 
-def test_routed_pallas_interpret_matches_jnp():
-    """The fused Pallas path (middle_crossbars + lane_gather_sum) must equal
-    the plain jnp path — run in interpreter mode on CPU. f32: the in-kernel
-    identity-dot transposes are exact (HIGHEST precision selector dots)."""
-    A = _random_csr(3000, 2800, 0.006, seed=31, dtype=np.float32)
-    A.data[:] = A.data.astype(np.float32)
-    p = pack_routed_csr(A.data.astype(np.float32), A.indices, A.indptr,
-                        A.shape, w=8)
-    assert p.vals.shape[1] > 128  # really 5-stage
-    x = np.random.default_rng(3).standard_normal(2800).astype(np.float32)
-    y_jnp = np.asarray(routed_matvec(p, x, use_pallas=False))
-    y_pal = np.asarray(routed_matvec(p, x, use_pallas="interpret"))
-    # routing/transposes are exact (one-hot dots); the final w-group
-    # summation ORDER differs (one-hot MXU dot vs reshape-sum) and the
-    # combine is the boundary-segsum kernel whose prefix-difference error
-    # is bounded by the per-window partial magnitudes (not per-row), so
-    # agreement is f32-rounding-at-window-scale, not bitwise
-    np.testing.assert_allclose(y_pal, y_jnp, rtol=5e-4, atol=1e-5)
-    np.testing.assert_allclose(y_jnp, A @ x, rtol=2e-5, atol=1e-5)
-
-
 def test_routed_fallback_reduce_passes(monkeypatch):
     """Pathological tiles (huge K) fall back to the routed ReducePass chain."""
     monkeypatch.setattr(R, "TILED_MAX_K", 0)
@@ -174,7 +155,7 @@ def test_routed_fallback_reduce_passes(monkeypatch):
     assert p.rowid is None and len(p.passes) >= 1
     x = np.random.default_rng(4).standard_normal(700)
     np.testing.assert_allclose(
-        np.asarray(routed_matvec(p, x, use_pallas=False)), A @ x, rtol=1e-12)
+        np.asarray(routed_matvec(p, x)), A @ x, rtol=1e-12)
 
 
 def test_routed_trivial_combine():
@@ -191,7 +172,7 @@ def test_routed_trivial_combine():
     ref = np.zeros(n)
     for r in range(n):
         ref[r] = vals[r] @ x[cols[r]]
-    np.testing.assert_allclose(np.asarray(routed_matvec(p, x, use_pallas=False)),
+    np.testing.assert_allclose(np.asarray(routed_matvec(p, x)),
                                ref, rtol=1e-12)
 
 
@@ -216,7 +197,7 @@ def test_routed_fuzz(seed, monkeypatch):
         monkeypatch.setattr(R, "TILED_MAX_K", 0)  # force reduce passes
     p = pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=w)
     x = rng.standard_normal(n_c)
-    y = np.asarray(routed_matvec(p, x, use_pallas=False))
+    y = np.asarray(routed_matvec(p, x))
     ref = A @ x
     np.testing.assert_allclose(y, ref, rtol=1e-11, atol=1e-11 * max(1.0, np.abs(ref).max()))
 
@@ -240,12 +221,10 @@ def test_routed_w_is_forwarded():
     assert op_d.routed_t.w == 32
 
 
-def test_routed_matmat_tpu_branch(monkeypatch):
-    """The TPU matrix-RHS path (mapped routed matvecs) matches the CSR
-    path in every mode — exercised on CPU by patching the backend seam
-    (use_pallas stays off: only the column-mapping logic differs)."""
+def test_routed_matmat_tpu_branch():
+    """The routed matrix-RHS apply (one shared routing program for all
+    columns) matches the dense oracle in every mode, complex included."""
     import linops_tpu as lo
-    from linops_tpu.sparse import ops as sops
 
     rng = np.random.default_rng(61)
     A = _random_csr(300, 260, 0.03, seed=61).astype(np.complex128)
@@ -254,7 +233,6 @@ def test_routed_matmat_tpu_branch(monkeypatch):
     op._ensure_transpose()
     M = rng.standard_normal((260, 3)) + 1j * rng.standard_normal((260, 3))
     U = rng.standard_normal((300, 3)) + 1j * rng.standard_normal((300, 3))
-    monkeypatch.setattr(sops, "_on_tpu", lambda: True)
     np.testing.assert_allclose(np.asarray(op.matmat(M)), A @ M, rtol=1e-12)
     np.testing.assert_allclose(np.asarray(op.matmat(M, mode="C")),
                                A.conj() @ M, rtol=1e-12)
@@ -264,11 +242,10 @@ def test_routed_matmat_tpu_branch(monkeypatch):
                                A.conj().T @ U, rtol=1e-12)
 
 
-def test_routed_symmetric_matmat_uses_forward_program(monkeypatch):
+def test_routed_symmetric_matmat_uses_forward_program():
     """Regression: symmetric routed operators must serve T/H matrix RHS via
     the FORWARD routing program (bump never packs routed_t for them)."""
     import linops_tpu as lo
-    from linops_tpu.sparse import ops as sops
 
     rng = np.random.default_rng(71)
     B = _random_csr(300, 300, 0.03, seed=71)
@@ -276,7 +253,6 @@ def test_routed_symmetric_matmat_uses_forward_program(monkeypatch):
     op = lo.opSparse(S, format="routed", symmetric=True, hermitian=True)
     assert op.routed_t is None
     M = rng.standard_normal((300, 3))
-    monkeypatch.setattr(sops, "_on_tpu", lambda: True)
     np.testing.assert_allclose(np.asarray(op.matmat(M, mode="T")),
                                S.T @ M, rtol=1e-12)
     np.testing.assert_allclose(np.asarray(op.matmat(M, mode="H")),
@@ -296,26 +272,26 @@ def test_routed_pathological_patterns():
     A = A.tocsr()
     p = pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=4)
     x = rng.standard_normal(n)
-    np.testing.assert_allclose(np.asarray(routed_matvec(p, x, use_pallas=False)),
+    np.testing.assert_allclose(np.asarray(routed_matvec(p, x)),
                                A @ x, rtol=1e-12)
     # single dense row
     B = scipy_sparse.csr_matrix(rng.standard_normal((1, 900)))
     p = pack_routed_csr(B.data, B.indices, B.indptr, B.shape, w=8)
     xb = rng.standard_normal(900)
-    np.testing.assert_allclose(np.asarray(routed_matvec(p, xb, use_pallas=False)),
+    np.testing.assert_allclose(np.asarray(routed_matvec(p, xb)),
                                B @ xb, rtol=1e-12)
     # tall single column
     C = scipy_sparse.csr_matrix(rng.standard_normal((900, 1)))
     p = pack_routed_csr(C.data, C.indices, C.indptr, C.shape, w=4)
     xc = rng.standard_normal(1)
-    np.testing.assert_allclose(np.asarray(routed_matvec(p, xc, use_pallas=False)),
+    np.testing.assert_allclose(np.asarray(routed_matvec(p, xc)),
                                (C @ xc), rtol=1e-12)
 
 
 def test_pack_to_device_false_roundtrip():
     """to_device=False leaves numpy leaves; one jax.device_put later gives
     a program identical in behavior to the default device pack (the bench
-    uses this seam to split CPU pack cost from upload, VERDICT r4 #5)."""
+    uses this seam to split CPU pack cost from upload)."""
     import jax
 
     A = _random_csr(1200, 1100, 0.01, seed=11)
@@ -327,12 +303,12 @@ def test_pack_to_device_false_roundtrip():
                for leaf in jax.tree_util.tree_leaves((host_prog, host_der)))
     dev_prog = jax.device_put(host_prog)
     x = np.random.default_rng(4).standard_normal(1100)
-    y = np.asarray(routed_matvec(dev_prog, x, use_pallas=False))
+    y = np.asarray(routed_matvec(dev_prog, x))
     np.testing.assert_allclose(y, A @ x, rtol=1e-12)
     if host_der is not None:
         from linops_tpu.sparse.routed import routed_rmatvec
 
         dev_der = jax.device_put(host_der)
         u = np.random.default_rng(5).standard_normal(1200)
-        yt = np.asarray(routed_rmatvec(dev_der, u, use_pallas=False))
+        yt = np.asarray(routed_rmatvec(dev_der, u))
         np.testing.assert_allclose(yt, A.T @ u, rtol=1e-12)

@@ -4,8 +4,8 @@ and the boundary-segsum combine, vs scipy/dense oracles.
 The derived transpose runs the forward Clos network BACKWARDS (inverse
 per-window crossbars, same wirings) — no second router run. These tests
 cover every layout regime: 1/3/5-stage domains, trivial and tiled combine
-layouts, multi-chunk packs, complex T/H, rectangular shapes, and the
-interpret-mode Pallas kernels (bit-contract of the TPU path).
+layouts, multi-chunk packs, complex T/H, rectangular shapes, and float32
+programs.
 """
 
 import warnings
@@ -15,6 +15,7 @@ import pytest
 
 scipy_sparse = pytest.importorskip("scipy.sparse")
 
+import jax
 import jax.numpy as jnp
 
 import linops_tpu as lo
@@ -49,14 +50,14 @@ def test_derived_transpose_oracle(n_r, n_c, density, w):
                                with_transpose=True)
     assert isinstance(der, RoutedTranspose)
     u = np.random.default_rng(2).standard_normal(n_r)
-    yt = np.asarray(routed_rmatvec(der, u, use_pallas=False))
+    yt = np.asarray(routed_rmatvec(der, u))
     ref = A.T @ u
     np.testing.assert_allclose(yt, ref, rtol=1e-12,
                                atol=1e-12 * np.abs(ref).max())
-    # interpret mode exercises the exact TPU kernel bodies
+    # a float32 program agrees to float32 rounding at window scale
     yt32 = np.asarray(routed_rmatvec(
         der._replace(vals_pre=der.vals_pre.astype(jnp.float32)),
-        u.astype(np.float32), use_pallas="interpret"))
+        u.astype(np.float32)))
     np.testing.assert_allclose(yt32, ref, rtol=2e-4,
                                atol=2e-4 * np.abs(ref).max())
 
@@ -75,7 +76,7 @@ def test_derived_transpose_trivial_layout():
     assert fwd.rowid is None  # really trivial
     A = scipy_sparse.csr_matrix((vals, cols, indptr), shape=(n, n))
     u = rng.standard_normal(n)
-    yt = np.asarray(routed_rmatvec(der, u, use_pallas=False))
+    yt = np.asarray(routed_rmatvec(der, u))
     np.testing.assert_allclose(yt, A.T @ u, rtol=1e-12, atol=1e-12)
 
 
@@ -97,7 +98,7 @@ def test_derived_transpose_multichunk(monkeypatch, trivial):
     assert der is not None
     A = scipy_sparse.csr_matrix((vals, cols, indptr), shape=(n, n))
     u = rng.standard_normal(n)
-    yt = np.asarray(routed_rmatvec(der, u, use_pallas=False))
+    yt = np.asarray(routed_rmatvec(der, u))
     np.testing.assert_allclose(yt, A.T @ u, rtol=1e-11, atol=1e-11)
 
 
@@ -108,36 +109,41 @@ def test_derived_transpose_complex_modes():
     fwd, der = pack_routed_csr(A.data, A.indices, A.indptr, A.shape,
                                with_transpose=True)
     u = rng.standard_normal(400) + 1j * rng.standard_normal(400)
-    yt = np.asarray(routed_rmatvec(der, u, use_pallas=False))
+    yt = np.asarray(routed_rmatvec(der, u))
     np.testing.assert_allclose(yt, A.T @ u, rtol=1e-12, atol=1e-12)
     yh = np.asarray(routed_rmatvec(
-        der._replace(vals_pre=jnp.conj(der.vals_pre)), u, use_pallas=False))
+        der._replace(vals_pre=jnp.conj(der.vals_pre)), u))
     np.testing.assert_allclose(yh, A.conj().T @ u, rtol=1e-12, atol=1e-12)
 
 
 def test_segsum_combine_bounds_match_onehot():
-    """Forward combine via boundary segsum == one-hot tiled combine (the
-    rowid runs are contiguous per window by construction)."""
+    """The forward combine (one segment sum over the tiles' row ids)
+    reduces arbitrary sub-row partials exactly like a per-row sum over
+    ``rowid``; trash slots (rowid -1) drop out."""
+    from linops_tpu.sparse.routed import _combine_segments
+
     A = _random_csr(700, 900, 0.05, seed=3)
     p = pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=4)
-    assert p.rowid is not None and p.comb_lo is not None
-    x = np.random.default_rng(4).standard_normal(900)
-    # interpret mode drives BOTH kernels (segsum picked when comb_lo set)
-    y_seg = np.asarray(routed_matvec(
-        p._replace(vals=p.vals.astype(jnp.float32)),
-        x.astype(np.float32), use_pallas="interpret"))
-    y_hot = np.asarray(routed_matvec(
-        p._replace(vals=p.vals.astype(jnp.float32), comb_lo=None,
-                   comb_hi=None),
-        x.astype(np.float32), use_pallas="interpret"))
-    ref = A @ x
-    np.testing.assert_allclose(y_seg, ref, rtol=2e-4, atol=2e-4 * np.abs(ref).max())
-    np.testing.assert_allclose(y_seg, y_hot, rtol=2e-5, atol=2e-5 * np.abs(ref).max())
+    assert p.rowid is not None
+    T, K = p.rowid.shape
+    q = np.random.default_rng(4).standard_normal(T * K)
+    y_seg = jax.ops.segment_sum(jnp.asarray(q), _combine_segments(p),
+                                num_segments=T * 128)
+    rid = np.asarray(p.rowid, np.int64).reshape(-1)
+    real = rid >= 0
+    ref = np.zeros(T * 128)
+    np.add.at(ref, np.repeat(np.arange(T), K)[real] * 128 + rid[real],
+              q[real])
+    np.testing.assert_allclose(np.asarray(y_seg), ref, rtol=1e-12,
+                               atol=1e-12)
+    x = np.random.default_rng(5).standard_normal(900)
+    np.testing.assert_allclose(np.asarray(routed_matvec(p, x)), A @ x,
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_routed_operator_transpose_eager_and_in_jit():
     """op.T works at full routed speed immediately, including when the
-    first T apply happens INSIDE a jit (VERDICT r3 item 5)."""
+    first T apply happens INSIDE a jit."""
     import jax
 
     A = _random_csr(500, 400, 0.03, seed=21)
@@ -198,18 +204,16 @@ def test_derived_transpose_skew_guard():
     A = scipy_sparse.csr_matrix((vals, cols, indptr), shape=(n, n))
     u = rng.standard_normal(n)
     if der is not None:  # if derivable anyway, it must be correct
-        yt = np.asarray(routed_rmatvec(der, u, use_pallas=False))
+        yt = np.asarray(routed_rmatvec(der, u))
         np.testing.assert_allclose(yt, A.T @ u, rtol=1e-11, atol=1e-11)
-    y = np.asarray(routed_matvec(fwd, rng.standard_normal(n),
-                                 use_pallas=False))
+    y = np.asarray(routed_matvec(fwd, rng.standard_normal(n)))
     assert np.isfinite(y).all()
 
 
 @pytest.mark.parametrize("regime", ["3stage", "5stage", "trivial", "chunked"])
 def test_routed_spmm_shared_program(monkeypatch, regime):
-    """routed_matmat/rmatmat: k RHS columns share ONE routing program via
-    the rep-grid kernels (VERDICT r3 item 6) — vs dense oracle, XLA and
-    interpret-mode Pallas paths, all layout regimes."""
+    """routed_matmat/rmatmat: k RHS columns share ONE routing program —
+    vs the dense oracle in float64 and float32, all layout regimes."""
     from linops_tpu.sparse.routed import routed_matmat, routed_rmatmat
 
     rng = np.random.default_rng(hash(regime) % 2**31)
@@ -242,32 +246,29 @@ def test_routed_spmm_shared_program(monkeypatch, regime):
     k = 5
     X = rng.standard_normal((n_c, k))
     U = rng.standard_normal((n_r, k))
-    Y = np.asarray(routed_matmat(fwd, X, use_pallas=False))
+    Y = np.asarray(routed_matmat(fwd, X))
     np.testing.assert_allclose(Y, A @ X, rtol=1e-11, atol=1e-11)
-    Yt = np.asarray(routed_rmatmat(der, U, use_pallas=False))
+    Yt = np.asarray(routed_rmatmat(der, U))
     np.testing.assert_allclose(Yt, A.T @ U, rtol=1e-11, atol=1e-11)
-    # interpret mode drives the rep-grid Pallas kernels themselves
+    # float32 programs agree to float32 rounding at window scale
     f32 = lambda a: jnp.asarray(np.asarray(a), jnp.float32)
-    Yi = np.asarray(routed_matmat(fwd._replace(vals=f32(fwd.vals)),
-                                  f32(X), use_pallas="interpret"))
+    Yi = np.asarray(routed_matmat(fwd._replace(vals=f32(fwd.vals)), f32(X)))
     ref = A @ X
     np.testing.assert_allclose(Yi, ref, rtol=5e-4,
                                atol=2e-4 * np.abs(ref).max())
     Yti = np.asarray(routed_rmatmat(
-        der._replace(vals_pre=f32(der.vals_pre)), f32(U),
-        use_pallas="interpret"))
+        der._replace(vals_pre=f32(der.vals_pre)), f32(U)))
     reft = A.T @ U
     np.testing.assert_allclose(Yti, reft, rtol=5e-4,
                                atol=2e-4 * np.abs(reft).max())
 
 
-def test_routed_operator_matmat_all_modes(monkeypatch):
+def test_routed_operator_matmat_all_modes():
     """apply_matrix on the routed operator uses the shared-program SpMM
     for every mode (N/T/C/H), complex included."""
     rng = np.random.default_rng(17)
     A = _random_csr(400, 300, 0.03, seed=13).astype(np.complex128)
     A.data[:] = rng.standard_normal(A.nnz) + 1j * rng.standard_normal(A.nnz)
-    monkeypatch.setattr(sops, "_on_tpu", lambda: True)
     op = sops.RoutedCSROperator(lo.opSparse(A, format="routed").data)
     Ad = A.toarray()
     X = rng.standard_normal((300, 4)) + 1j * rng.standard_normal((300, 4))
@@ -279,14 +280,13 @@ def test_routed_operator_matmat_all_modes(monkeypatch):
         np.testing.assert_allclose(got, ref, rtol=1e-11, atol=1e-11)
 
 
-def test_routed_operator_apply_matrix_t_all_modes(monkeypatch):
+def test_routed_operator_apply_matrix_t_all_modes():
     """apply_matrix_t (row-panel protocol) on the routed operator runs the
     panel=True SpMM — the pipeline's native column-outer layout on both
     ends — and agrees with apply_matrix(Mt.T).T for every mode."""
     rng = np.random.default_rng(23)
     A = _random_csr(400, 300, 0.03, seed=29).astype(np.complex128)
     A.data[:] = rng.standard_normal(A.nnz) + 1j * rng.standard_normal(A.nnz)
-    monkeypatch.setattr(sops, "_on_tpu", lambda: True)
     op = sops.RoutedCSROperator(lo.opSparse(A, format="routed").data)
     Ad = A.toarray()
     Xt = rng.standard_normal((4, 300)) + 1j * rng.standard_normal((4, 300))
@@ -306,7 +306,7 @@ def test_routed_operator_apply_matrix_t_all_modes(monkeypatch):
 
 def test_routed_matmat_panel_matches_dense_layout():
     """routed_matmat/rmatmat panel=True equal the transposed dense-layout
-    results (interpret-mode kernels, real f32)."""
+    results (real f32)."""
     from linops_tpu.sparse.routed import routed_matmat, routed_rmatmat
 
     A = _random_csr(500, 400, 0.02, seed=31)
@@ -316,10 +316,10 @@ def test_routed_matmat_panel_matches_dense_layout():
     X = rng.standard_normal((400, 5)).astype(np.float32)
     U = rng.standard_normal((500, 5)).astype(np.float32)
     Yp = np.asarray(routed_matmat(p, jnp.asarray(X.T.copy()),
-                                  use_pallas=False, panel=True))
-    Yd = np.asarray(routed_matmat(p, jnp.asarray(X), use_pallas=False))
+                                  panel=True))
+    Yd = np.asarray(routed_matmat(p, jnp.asarray(X)))
     np.testing.assert_allclose(Yp, Yd.T, rtol=1e-5, atol=1e-5)
     Tp = np.asarray(routed_rmatmat(der, jnp.asarray(U.T.copy()),
-                                   use_pallas=False, panel=True))
-    Td = np.asarray(routed_rmatmat(der, jnp.asarray(U), use_pallas=False))
+                                   panel=True))
+    Td = np.asarray(routed_rmatmat(der, jnp.asarray(U)))
     np.testing.assert_allclose(Tp, Td.T, rtol=1e-5, atol=1e-5)

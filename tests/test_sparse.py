@@ -124,48 +124,6 @@ def test_sparse_no_recompile(rng):
     assert lo.apply_cache_sizes() == before
 
 
-def test_pallas_bsr_interpret(rng):
-    """Pallas BSR kernels (interpret mode) match the XLA path — forward
-    (both gather variants) and transpose."""
-    import jax.numpy as jnp
-    from linops_tpu.sparse.formats import bsr_from_dense
-    from linops_tpu.kernels import (
-        bsr_matvec_pallas,
-        bsr_rmatvec_pallas,
-        bsr_pallas_rows_per_program,
-    )
-
-    n = 256
-    A = sprand(rng, n, n, 0.1).astype(np.float32)
-    bsr = bsr_from_dense(A, (8, 32))
-    nbrow = bsr.blocks.shape[0]
-    pad = (-nbrow) % bsr_pallas_rows_per_program(8)
-    blocks = jnp.pad(bsr.blocks, ((0, pad), (0, 0), (0, 0), (0, 0)))
-    cols = jnp.pad(bsr.block_cols, ((0, pad), (0, 0)))
-    xb = jnp.asarray(rng.standard_normal(n).astype(np.float32)).reshape(-1, 32)
-    for variant in ("onehot", "loop"):
-        y = bsr_matvec_pallas(blocks, cols, xb, interpret=True, variant=variant)
-        ref = A @ np.asarray(xb).ravel()
-        got = np.asarray(y).ravel()[:n]
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-5)
-    # transpose mode
-    ub = jnp.asarray(rng.standard_normal(blocks.shape[0] * 8).astype(np.float32)).reshape(-1, 8)
-    out = bsr_rmatvec_pallas(blocks, cols, ub, n // 32, interpret=True)
-    reft = A.T @ np.asarray(ub).ravel()[: n]
-    np.testing.assert_allclose(np.asarray(out).ravel()[:n], reft, rtol=2e-5, atol=1e-5)
-
-
-def test_pallas_backend_operator(rng):
-    """BSROperator(backend='pallas') (interpreter off-TPU) matches dense,
-    forward and transpose, through the operator API."""
-    n = 256
-    A = sprand(rng, n, n, 0.15).astype(np.float32)
-    op = opSparse(A, format="bsr", block_shape=(8, 32), backend="pallas")
-    v = rng.standard_normal(n).astype(np.float32)
-    assert_close(op * v, A @ v, rtol=1e-4)
-    assert_close(op.T * v, A.T @ v, rtol=1e-4)
-
-
 def test_bsr_auto_block_shape(rng):
     """block_shape='auto' picks the tile minimizing stored bytes and stays
     correct; a dense-ish matrix should prefer large tiles."""
@@ -245,7 +203,7 @@ def test_native_packer_sums_duplicates(rng):
 
 def test_opsparse_format_auto(rng):
     """format='auto' packs block-structured patterns to BSR (native packer)
-    and leaves scattered patterns in CSR (round-1 VERDICT #1 routing)."""
+    and leaves scattered patterns in CSR."""
     scipy_sparse = pytest.importorskip("scipy.sparse")
     from linops_tpu.native import native_available
 
@@ -263,44 +221,15 @@ def test_opsparse_format_auto(rng):
     assert_close(opb * v, blocky @ v)
 
     # scattered: ~2 nnz/row uniform — no recoverable block structure, so
-    # auto picks the Clos-routed lane-gather layout (sparse/routed.py)
-    scat = rng.standard_normal((n, n)) * (rng.random((n, n)) < 2.0 / n)
-    opc = lo.opSparse(scipy_sparse.csr_matrix(scat), format="auto")
-    assert type(opc).__name__ == "RoutedCSROperator"
-    assert_close(opc * v, scat @ v)
-
-    # above the routed auto-pack budget, scattered falls to plain CSR —
-    # but NEVER silently: the 180× cliff is announced with the faster
-    # explicit options (VERDICT r4 missing #2)
+    # auto picks plain CSR, silently
     import warnings
 
-    from linops_tpu.sparse import ops as sparse_ops
-
-    old = sparse_ops.ROUTED_AUTO_MAX_NNZ
-    try:
-        sparse_ops.ROUTED_AUTO_MAX_NNZ = 1
-        with pytest.warns(UserWarning, match="format='routed'"):
-            opd = lo.opSparse(scipy_sparse.csr_matrix(scat), format="auto")
-        assert type(opd).__name__ == "CSROperator"
-    finally:
-        sparse_ops.ROUTED_AUTO_MAX_NNZ = old
-
-    # between the warn threshold and the cap, auto still routes but
-    # announces the pack cost
-    old_warn = sparse_ops.ROUTED_AUTO_WARN_NNZ
-    try:
-        sparse_ops.ROUTED_AUTO_WARN_NNZ = 1
-        with pytest.warns(UserWarning, match="pack cost"):
-            ope = lo.opSparse(scipy_sparse.csr_matrix(scat), format="auto")
-        assert type(ope).__name__ == "RoutedCSROperator"
-    finally:
-        sparse_ops.ROUTED_AUTO_WARN_NNZ = old_warn
-
-    # below the warn threshold: silent routing, no warnings
+    scat = rng.standard_normal((n, n)) * (rng.random((n, n)) < 2.0 / n)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        opf = lo.opSparse(scipy_sparse.csr_matrix(scat), format="auto")
-    assert type(opf).__name__ == "RoutedCSROperator"
+        opc = lo.opSparse(scipy_sparse.csr_matrix(scat), format="auto")
+    assert type(opc).__name__ == "CSROperator"
+    assert_close(opc * v, scat @ v)
 
 
 def test_ell_operator(rng):
@@ -385,18 +314,11 @@ def test_sparse_apply_matrix_rejects_wrong_shape(rng):
                 op.apply_matrix(jnp.zeros(n), mode)
 
 
-def test_csr_chunked_apply(rng, monkeypatch):
-    """nnz above CSR_CHUNK_NNZ routes through the lax.scan chunked path
-    (the guard for the ≥16M-nnz TPU-worker crash); results must match the
-    single-shot path and the dense oracle exactly, including matrix RHS
-    and non-divisible chunk counts."""
-    from linops_tpu.sparse import ops as sops
-
-    monkeypatch.setattr(sops, "CSR_CHUNK_NNZ", 37)  # force ~8 chunks
+def test_csr_chunked_apply(rng):
+    """CSR/COO applies (one unchunked gather + segment sum) in every mode
+    and with matrix RHS match the dense oracle."""
     m, n = 40, 50
     A = sprand(rng, m, n, 0.15)
-    nnz = int((A != 0).sum())
-    assert nnz > 2 * 37
     for fmt in ("csr", "coo"):
         op = opSparse(A, format=fmt)
         v = rng.standard_normal(n)
@@ -410,19 +332,11 @@ def test_csr_chunked_apply(rng, monkeypatch):
 
 
 def test_bsr_auto_block_shape_bf16(rng):
-    """bf16 storage must auto-pick bm >= 16: a (8, 128) bf16 slab occupies
-    the full (16, 128) Mosaic tile so the DMA sees no byte saving
-    (kernels/bsr_spmv.py:30-33; bench 16x128 bf16 330 vs 8x128 251
-    Gnnz/s)."""
+    """The auto block shape minimises stored blocks alone, so bf16 storage
+    picks the same tile as float32; the bf16 operator applies correctly."""
     scipy_sparse = pytest.importorskip("scipy.sparse")
-    from linops_tpu.native import native_available
-
-    if not native_available():
-        pytest.skip("native counter unavailable")
-    n = 1024
     # low-density scattered pattern: distinct-block count grows sublinearly
-    # with bm, so f32 strictly prefers 8 rows; the bf16 tile-waste term
-    # (an (8,128) bf16 slab fills the whole (16,128) tile) flips it to 16
+    # with bm, so the fewest stored bytes come from 8-row blocks
     rng2 = np.random.default_rng(3)
     nn = 4096
     rows_i = np.repeat(np.arange(nn), 2)
@@ -435,12 +349,10 @@ def test_bsr_auto_block_shape_bf16(rng):
     from linops_tpu.sparse.ops import _auto_block_shape
 
     (bm32, _bn32) = _auto_block_shape(sp32)
-    (bm16, _bn16) = _auto_block_shape(sp32, dtype=jnp.bfloat16)
     assert bm32 == 8, bm32
-    assert bm16 >= 16, bm16
 
     op = lo.opSparse(sp32, format="bsr", block_shape="auto", dtype=jnp.bfloat16)
-    assert op.data.block_shape[0] >= 16
+    assert op.data.block_shape[0] == 8
     assert op.data.blocks.dtype == jnp.bfloat16
     v = rng.standard_normal(n).astype(np.float32)
     got = np.asarray(op * jnp.asarray(v), np.float32)
@@ -455,255 +367,10 @@ def test_bsr_auto_block_shape_bf16(rng):
         np.testing.assert_allclose(gotf, ref, rtol=2e-2)
 
 
-def test_bsr_windowed_forward(monkeypatch, rng):
-    """x beyond the VMEM residency bound on a banded pattern routes to the
-    sliding-window Pallas kernel (interpret mode on CPU) and matches the
-    XLA path exactly-ish (same 3-pass split contract)."""
-    scipy_sparse = pytest.importorskip("scipy.sparse")
-    import linops_tpu.kernels.bsr_spmv as BK
-
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_X_ELEMS", 2048)
-    n = 40 * 128  # nbcol = 40 > 16 blocks over the shrunken bound
-    A = np.zeros((n, n), np.float32)
-    # block-banded: each 8-row stripe touches a narrow sliding column window
-    for bi in range(n // 8):
-        j0 = min(max((bi * 8 * 40 // (n // 128)) // 1, 0), 39 - 3)
-        j0 = int(bi * 37 / (n // 8))  # slowly sliding window start
-        for k in range(3):
-            A[bi * 8:(bi + 1) * 8, (j0 + k) * 128:(j0 + k + 1) * 128] = (
-                rng.standard_normal((8, 128)).astype(np.float32))
-    op = lo.opSparse(scipy_sparse.csr_matrix(A), format="bsr",
-                     block_shape=(8, 128), backend="pallas")
-    assert op.win_q is not None and op._wb > 0
-    v = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(op * v)
-    ref = A @ v
-    np.testing.assert_allclose(y, ref, rtol=3e-6, atol=3e-5)
-    # scattered pattern (not banded): plan refuses, falls back to XLA
-    S = np.zeros((n, n), np.float32)
-    idx = rng.integers(0, 40, n // 8)
-    S[np.arange(n), ((idx.repeat(8) * 997) % 40) * 128 + rng.integers(0, 128, n)] = 1.0
-    op2 = lo.opSparse(scipy_sparse.csr_matrix(S), format="bsr",
-                      block_shape=(8, 128), backend="pallas")
-    v2 = rng.standard_normal(n).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(op2 * v2), S @ v2, rtol=3e-6, atol=3e-5)
-
-
-def test_bsr_multiwindow_forward(monkeypatch, rng):
-    """Mostly-banded pattern (band + a far-off column cluster per stripe,
-    e.g. RCM leftovers): the banded plan refuses (span exceeds its single
-    window cap) but the multi-window plan keeps the forward on the Pallas
-    path with independently addressed windows; the transpose runs the
-    monotone-lane sliding-window scatter kernel (round-5: multi plans are
-    no longer forward-only)."""
-    import linops_tpu.kernels.bsr_spmv as BK
-    from linops_tpu.sparse.formats import BSR
-    from linops_tpu.sparse.ops import BSROperator
-
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_X_ELEMS", 2048)
-    nbrow, kmax, bm, bn = 256, 3, 8, 128
-    nbcol = 4608  # span to the far cluster > banded wb_max (4096)
-    cols = np.zeros((nbrow, kmax), np.int32)
-    for bi in range(nbrow):
-        j0 = bi // 8                      # slow band
-        jc = 4400 + (bi % 16) * 8         # far-off outlier cluster
-        cols[bi] = sorted([j0, j0 + 1, jc])
-    blocks = rng.standard_normal((nbrow, kmax, bm, bn)).astype(np.float32)
-    data = BSR(blocks=jnp.asarray(blocks), block_cols=jnp.asarray(cols),
-               shape=(nbrow * bm, nbcol * bn))
-    op = BSROperator(data, backend="pallas")
-    assert op.win_q is not None and op.cols_local is None
-    assert op.win_q.ndim == 2 and op._wb > 0
-    # the monotone-lane transpose plan must exist for this pattern (a
-    # slow band lane + a revisiting outlier-cluster lane)
-    assert op.win_q_t is not None and op.win_valid_t is not None
-    qt = np.asarray(op.win_q_t)
-    assert (np.diff(qt, axis=1) >= 0).all(), "lanes must be monotone"
-    x = rng.standard_normal(nbcol * bn).astype(np.float32)
-    ref = np.zeros(nbrow * bm, np.float32)
-    for bi in range(nbrow):
-        for k in range(kmax):
-            c = cols[bi, k]
-            ref[bi * bm:(bi + 1) * bm] += (
-                blocks[bi, k] @ x[c * bn:(c + 1) * bn])
-    np.testing.assert_allclose(np.asarray(op * x), ref,
-                               rtol=3e-6, atol=3e-5)
-    u = rng.standard_normal(nbrow * bm).astype(np.float32)
-    reft = np.zeros(nbcol * bn, np.float32)
-    for bi in range(nbrow):
-        for k in range(kmax):
-            c = cols[bi, k]
-            reft[c * bn:(c + 1) * bn] += (
-                blocks[bi, k].T @ u[bi * bm:(bi + 1) * bm])
-    np.testing.assert_allclose(np.asarray(op.T @ u), reft,
-                               rtol=3e-6, atol=3e-5)
-
-
-def test_bsr_window_plan_multi_units():
-    """Planner unit cases: dump-window lanes must be collision-free, W
-    must fit, scattered patterns must refuse under a tight window cap."""
-    from linops_tpu.kernels.bsr_spmv import bsr_window_plan_multi
-
-    # two clusters far apart -> W=2 at small wb
-    cols = np.stack([np.full(16, 3), np.full(16, 900)], axis=1).astype(
-        np.int32)
-    plan = bsr_window_plan_multi(cols, R=8, nbcol=1024, wb_max=64)
-    assert plan is not None
-    q, wb, xpb = plan
-    assert q.shape[0] <= 4 and xpb % wb == 0
-    # every real col is covered by some lane's window
-    for g in range(q.shape[1]):
-        for c in (3, 900):
-            assert any(q[w, g] * wb <= c < (q[w, g] + 1) * wb
-                       for w in range(q.shape[0]))
-    # scattered: >4 clusters per group under a tight cap -> refuse
-    cols_s = (np.arange(16)[:, None] * 977 % 8000).astype(np.int32)
-    assert bsr_window_plan_multi(cols_s, R=16, nbcol=8192, wb_max=8,
-                                 max_windows=4) is None
-
-
-def test_bsr_window_plan_multi_t_units():
-    """Monotone-lane transpose planner: a fixed outlier cluster gets a
-    constant lane, a sliding band a monotone lane; a strictly descending
-    window sequence longer than the lane count must refuse."""
-    from linops_tpu.kernels.bsr_spmv import bsr_window_plan_multi_t
-
-    # band window rises 0,0,1,1 while cluster stays at window 50; group 2
-    # skips the cluster (forces a valid=0 lane repeat)
-    R = 8
-    cols = np.zeros((4 * R, 2), np.int32)
-    for g in range(4):
-        band = g // 2
-        clus = 50 if g != 2 else band  # group 2: band only
-        for r in range(R):
-            cols[g * R + r] = sorted([band * 8 + 1, clus * 8 + 1])
-    plan = bsr_window_plan_multi_t(cols, R=R, nbcol=512, wb=8, W=2)
-    assert plan is not None
-    q_t, valid, xpb = plan
-    assert (np.diff(q_t, axis=1) >= 0).all()
-    # every real window of every group is served by a valid lane
-    for g in range(4):
-        wins = set(np.unique(cols[g * R:(g + 1) * R] // 8))
-        served = {int(q_t[w, g]) for w in range(q_t.shape[0]) if valid[w, g]}
-        assert wins == served
-    assert xpb % 8 == 0 and xpb >= 512
-
-    # descending windows through more lanes than available: refuse
-    cols_d = np.zeros((6 * R, 1), np.int32)
-    for g in range(6):
-        cols_d[g * R:(g + 1) * R, 0] = (10 - g) * 8 + 1
-    assert bsr_window_plan_multi_t(cols_d, R=R, nbcol=512, wb=8, W=4) is None
-
-
-def test_bsr_multiwindow_transpose_groups(monkeypatch, rng):
-    """Multi-window transpose kernel across SEVERAL row groups: lane
-    repeats with valid=0, window revisit-with-accumulate within a lane,
-    and unvisited window blocks coming out exactly zero."""
-    import linops_tpu.kernels.bsr_spmv as BK
-    from linops_tpu.sparse.formats import BSR
-    from linops_tpu.sparse.ops import BSROperator
-
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_X_ELEMS", 2048)
-    monkeypatch.setattr(BK, "_TILE_BYTES_TARGET", 65536)  # R=16 -> 4 groups
-    # shrink the single-window cap so the banded plan refuses (span ~57
-    # blocks) and the multi-window plan fires with small windows.
-    # kmax=8 keeps R*kmax = 128 — the lane-major cols BlockSpec must be
-    # 128-divisible on real TPUs (bsr_pallas_rows_per_program snaps R)
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_WINDOW_BLOCKS", 16)
-    nbrow, kmax, bm, bn = 64, 8, 8, 128
-    nbcol = 64
-    cols = np.zeros((nbrow, kmax), np.int32)
-    for bi in range(nbrow):
-        g = bi // 16
-        band = g * 3  # sliding 7-wide band
-        clus = 56 if g != 2 else band + 7  # cluster absent in group 2
-        cols[bi] = sorted(list(range(band, band + 7)) + [clus])
-    blocks = rng.standard_normal((nbrow, kmax, bm, bn)).astype(np.float32)
-    data = BSR(blocks=jnp.asarray(blocks), block_cols=jnp.asarray(cols),
-               shape=(nbrow * bm, nbcol * bn))
-    op = BSROperator(data, backend="pallas")
-    assert op.win_q is not None and op.cols_local is None
-    assert op.win_q_t is not None
-    dense = np.zeros((nbrow * bm, nbcol * bn), np.float32)
-    for bi in range(nbrow):
-        for k in range(kmax):
-            c = cols[bi, k]
-            dense[bi * bm:(bi + 1) * bm, c * bn:(c + 1) * bn] += blocks[bi, k]
-    u = rng.standard_normal(nbrow * bm).astype(np.float32)
-    yt = np.asarray(op.T @ u)
-    ref = dense.T @ u
-    np.testing.assert_allclose(yt, ref, rtol=3e-6, atol=3e-5)
-    dead = np.abs(ref) == 0
-    assert np.abs(yt[dead]).max(initial=0.0) == 0.0
-    # forward stays correct through the same plan family
-    x = rng.standard_normal(nbcol * bn).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(op @ x), dense @ x,
-                               rtol=3e-6, atol=3e-5)
-
-
-def test_bsr_window_plan_refuses_real_col0_in_pad_slot():
-    """Regression: a hand-built BSR can carry a REAL block at block-col 0
-    in a non-first slot, which looks identical to padding from the cols
-    alone; the plan must consult the block values (pads are all-zero) and
-    refuse instead of silently misrouting."""
-    from linops_tpu.kernels.bsr_spmv import bsr_window_plan
-
-    cols = np.array([[30, 0]] * 16, np.int32)
-    real0 = np.ones((16, 2, 8, 16), np.float32)         # slot 1 NONZERO
-    padded = real0.copy(); padded[:, 1] = 0.0            # slot 1 = true pad
-    assert bsr_window_plan(cols, R=8, nbcol=64) is None  # no ground truth
-    assert bsr_window_plan(cols, R=8, nbcol=64, blocks=real0) is None
-    assert bsr_window_plan(cols, R=8, nbcol=64, blocks=padded) is not None
-    unsorted = np.array([[30, 5]] * 16, np.int32)        # plainly unsorted
-    assert bsr_window_plan(unsorted, R=8, nbcol=64,
-                           blocks=real0) is None
-
-
-def test_bsr_windowed_transpose(monkeypatch, rng):
-    """Transpose with output beyond the VMEM residency bound on a banded
-    pattern routes to the sliding-window scatter kernel (interpret mode on
-    CPU); unvisited window blocks must come out exactly zero (where-mask,
-    not multiply) and visited ones must match the XLA path."""
-    scipy_sparse = pytest.importorskip("scipy.sparse")
-    import linops_tpu.kernels.bsr_spmv as BK
-
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_X_ELEMS", 2048)
-    n = 40 * 128
-    A = np.zeros((n, n), np.float32)
-    for bi in range(n // 8):
-        j0 = int(bi * 37 / (n // 8))
-        for k in range(3):
-            A[bi * 8:(bi + 1) * 8, (j0 + k) * 128:(j0 + k + 1) * 128] = (
-                rng.standard_normal((8, 128)).astype(np.float32))
-    op = lo.opSparse(scipy_sparse.csr_matrix(A), format="bsr",
-                     block_shape=(8, 128), backend="pallas")
-    assert op.win_q is not None and op._wb > 0
-    u = rng.standard_normal(n).astype(np.float32)
-    yt = np.asarray(op.T @ u)
-    ref = A.T @ u
-    np.testing.assert_allclose(yt, ref, rtol=3e-6, atol=3e-5)
-
-    # a matrix whose band skips some windows: unvisited blocks stay zero
-    B = np.zeros((n, n), np.float32)
-    for bi in range(n // 8):
-        j0 = (0 if bi < n // 16 else 30)  # jump in q
-        B[bi * 8:(bi + 1) * 8, j0 * 128:(j0 + 2) * 128] = (
-            rng.standard_normal((8, 256)).astype(np.float32))
-    opB = lo.opSparse(scipy_sparse.csr_matrix(B), format="bsr",
-                      block_shape=(8, 128), backend="pallas")
-    if opB.win_q is not None:
-        ytB = np.asarray(opB.T @ u)
-        refB = B.T @ u
-        np.testing.assert_allclose(ytB, refB, rtol=3e-6, atol=3e-5)
-        dead = np.abs(refB) == 0
-        assert np.abs(ytB[dead]).max(initial=0.0) == 0.0
-
-
-def test_bsr_all_bf16_apply(monkeypatch, rng):
-    """All-bf16 applies (bf16 blocks AND bf16 vector) through the Pallas
-    kernels: the dots must accumulate f32 (Mosaic rejects bf16 matmul
-    accumulators — crashed on TPU before r5) and the result keeps the
-    promoted bf16 dtype."""
+def test_bsr_all_bf16_apply(rng):
+    """All-bf16 applies (bf16 blocks AND bf16 vector), forward and
+    transpose: the result keeps the promoted bf16 dtype and bf16
+    accuracy."""
     from linops_tpu.sparse.formats import BSR
     from linops_tpu.sparse.ops import BSROperator
 
@@ -713,7 +380,7 @@ def test_bsr_all_bf16_apply(monkeypatch, rng):
     cols = rng.integers(0, nbcol, (nbrow, kmax)).astype(np.int32)
     data = BSR(blocks=jnp.asarray(blocks).astype(jnp.bfloat16),
                block_cols=jnp.asarray(cols), shape=(nbrow * bm, nbcol * bn))
-    op = BSROperator(data, backend="pallas")
+    op = BSROperator(data)
     v = rng.standard_normal(nbcol * bn).astype(np.float32)
     v16 = jnp.asarray(v).astype(jnp.bfloat16)
     y = op @ v16
@@ -736,152 +403,52 @@ def test_bsr_all_bf16_apply(monkeypatch, rng):
                                rtol=3e-2, atol=3e-1)
 
 
-def test_bsr_multiwindow_transpose_bf16(monkeypatch, rng):
-    """Regression (r5 review): the multi-window transpose kernel crashed
-    on bf16 blocks ('Invalid dtype for swap') because the lane-validity
-    multiply re-promoted the update to f32 after the output-dtype cast."""
-    import linops_tpu.kernels.bsr_spmv as BK
+def _bsr_pattern(kind, nbrow, nbcol):
+    """Block-column lists (nbrow, 3) of the patterns the XLA path must
+    handle: a sliding band, a band plus a far column cluster, and a real
+    block at block-column 0 in a later slot (unsorted columns)."""
+    bi = np.arange(nbrow)
+    if kind == "banded":
+        c0 = (bi * (nbcol - 3)) // max(nbrow - 1, 1)
+        return c0[:, None] + np.arange(3)[None, :]
+    if kind == "band_outlier":
+        c0 = (bi * (nbcol - 4)) // max(nbrow - 1, 1)
+        band = c0[:, None] + np.arange(2)[None, :]
+        return np.concatenate([band, np.full((nbrow, 1), nbcol - 1)], axis=1)
+    return np.tile(np.array([nbcol - 2, 0, 2]), (nbrow, 1))
+
+
+@pytest.mark.parametrize("pattern", ["banded", "band_outlier", "col0_later_slot"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex128"])
+@pytest.mark.parametrize("mode", ["N", "T", "H"])
+@pytest.mark.parametrize("block", [(8, 128), (16, 128), (32, 128), (128, 128)])
+def test_bsr_xla_oracle(block, mode, dtype, pattern):
+    """BSROperator's XLA applies (gather+einsum forward, segment-sum
+    transpose) against a dense oracle, for every block shape, mode and
+    dtype the operator serves."""
     from linops_tpu.sparse.formats import BSR
     from linops_tpu.sparse.ops import BSROperator
 
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_X_ELEMS", 2048)
-    monkeypatch.setattr(BK, "_TILE_BYTES_TARGET", 65536)
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_WINDOW_BLOCKS", 16)
-    nbrow, kmax, bm, bn = 64, 8, 8, 128
-    nbcol = 64
-    cols = np.zeros((nbrow, kmax), np.int32)
-    for bi in range(nbrow):
-        g = bi // 16
-        clus = 56 if g != 2 else g * 3 + 7
-        cols[bi] = sorted(list(range(g * 3, g * 3 + 7)) + [clus])
-    blocks = rng.standard_normal((nbrow, kmax, bm, bn)).astype(np.float32)
-    data = BSR(blocks=jnp.asarray(blocks).astype(jnp.bfloat16),
-               block_cols=jnp.asarray(cols), shape=(nbrow * bm, nbcol * bn))
-    op = BSROperator(data, backend="pallas")
-    assert op.win_q_t is not None
-    u = rng.standard_normal(nbrow * bm).astype(np.float32)
-    yt = op.T @ jnp.asarray(u).astype(jnp.bfloat16)
-    assert yt.dtype == jnp.bfloat16
-    dense = np.zeros((nbrow * bm, nbcol * bn), np.float32)
-    b16 = np.asarray(data.blocks, np.float32)
-    for bi in range(nbrow):
-        for kk in range(kmax):
-            c = cols[bi, kk]
-            dense[bi * bm:(bi + 1) * bm, c * bn:(c + 1) * bn] += b16[bi, kk]
-    ref = dense.T @ np.asarray(jnp.asarray(u).astype(jnp.bfloat16), np.float32)
-    np.testing.assert_allclose(np.asarray(yt, np.float32), ref,
-                               rtol=5e-2, atol=5e-1)
-
-
-def test_rows_per_program_lane_rule():
-    """R*kmax must be 128-divisible (Mosaic lane rule for the lane-major
-    cols BlockSpec) for every kmax, and R stays a multiple of 8."""
-    from linops_tpu.kernels.bsr_spmv import bsr_pallas_rows_per_program
-
-    for kmax in (1, 2, 3, 5, 7, 8, 10, 16, 25, 32):
-        for bm in (8, 16, 32):
-            R = bsr_pallas_rows_per_program(bm, kmax, 128, 4)
-            assert (R * kmax) % 128 == 0, (kmax, bm, R)
-            assert R % 8 == 0 and R >= 8
-
-
-def test_bsr_multiwindow_transpose_fuzz(monkeypatch, rng):
-    """Property fuzz for the monotone-lane transpose planner: random
-    mostly-banded patterns either get a plan whose lanes are monotone and
-    cover every real window, or refuse; when planned, the interpret-mode
-    kernel matches the dense oracle exactly-ish."""
-    import linops_tpu.kernels.bsr_spmv as BK
-    from linops_tpu.sparse.formats import BSR
-    from linops_tpu.sparse.ops import BSROperator
-
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_X_ELEMS", 2048)
-    monkeypatch.setattr(BK, "_TILE_BYTES_TARGET", 65536)  # R=16
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_WINDOW_BLOCKS", 16)
-    nbrow, kmax, bm, bn = 64, 8, 8, 128
-    nbcol = 64
-    planned = 0
-    for trial in range(6):
-        cols = np.zeros((nbrow, kmax), np.int32)
-        base_step = int(rng.integers(1, 4))
-        n_clusters = int(rng.integers(0, 3))
-        clusters = rng.integers(40, nbcol - 1, size=max(n_clusters, 1))
-        for bi in range(nbrow):
-            g = bi // 16
-            band0 = min(g * base_step, nbcol - kmax - 1)
-            row = list(range(band0, band0 + kmax - n_clusters))
-            for c in clusters[:n_clusters]:
-                # clusters drop out for a random group (lane repeats)
-                row.append(int(c) if g != int(rng.integers(0, 4))
-                           else band0 + kmax)
-            cols[bi] = sorted(row)[:kmax]
-        blocks = rng.standard_normal((nbrow, kmax, bm, bn)).astype(
-            np.float32)
-        op = BSROperator(
-            BSR(blocks=jnp.asarray(blocks), block_cols=jnp.asarray(cols),
-                shape=(nbrow * bm, nbcol * bn)), backend="pallas")
-        if op.win_q_t is None:
-            continue  # refusal is a legal outcome
-        planned += 1
-        qt = np.asarray(op.win_q_t)
-        vt = np.asarray(op.win_valid_t)
-        assert (np.diff(qt, axis=1) >= 0).all(), (trial, qt)
-        # every real window of every group served by a valid lane
-        wb = op._wb
-        ngroups = qt.shape[1]
-        R = nbrow // ngroups
-        for g in range(ngroups):
-            wins = set(np.unique(cols[g * R:(g + 1) * R] // wb))
-            served = {int(qt[w, g]) for w in range(qt.shape[0])
-                      if vt[w, g]}
-            assert wins <= served, (trial, g, wins, served)
-        u = rng.standard_normal(nbrow * bm).astype(np.float32)
-        yt = np.asarray(op.T @ jnp.asarray(u))
-        dense = np.zeros((nbrow * bm, nbcol * bn), np.float32)
-        for bi in range(nbrow):
-            for kk in range(kmax):
-                c = cols[bi, kk]
-                dense[bi * bm:(bi + 1) * bm,
-                      c * bn:(c + 1) * bn] += blocks[bi, kk]
-        ref = dense.T @ u
-        np.testing.assert_allclose(yt, ref, rtol=3e-6, atol=3e-5)
-    assert planned >= 2, f"only {planned} of 6 trials planned"
-
-
-def test_bsr_windowed_unpacked_io(monkeypatch, rng):
-    """When R is not 128-divisible (Mosaic lane rule forbids the packed
-    (bm, R) kernel I/O on TPU), the windowed paths downgrade to unpacked
-    (R, bm) I/O instead of losing the Pallas plan — both directions must
-    stay correct through the unpacked layout."""
-    import linops_tpu.kernels.bsr_spmv as BK
-    from linops_tpu.sparse import ops as sparse_ops
-    from linops_tpu.sparse.formats import BSR
-    from linops_tpu.sparse.ops import BSROperator
-
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_X_ELEMS", 2048)
-    monkeypatch.setattr(BK, "_TILE_BYTES_TARGET", 65536)  # R=16
-    monkeypatch.setattr(BK, "BSR_PALLAS_MAX_WINDOW_BLOCKS", 16)
-    monkeypatch.setattr(sparse_ops, "_on_tpu", lambda: True)
-    nbrow, kmax, bm, bn = 64, 8, 8, 128
-    nbcol = 64
-    cols = np.zeros((nbrow, kmax), np.int32)
-    for bi in range(nbrow):
-        g = bi // 16
-        clus = 56 if g != 2 else g * 3 + 7
-        cols[bi] = sorted(list(range(g * 3, g * 3 + 7)) + [clus])
-    blocks = rng.standard_normal((nbrow, kmax, bm, bn)).astype(np.float32)
+    rng = np.random.default_rng(sum(block) + len(pattern))
+    bm, bn = block
+    nbrow, nbcol = 8, 6
+    cols = _bsr_pattern(pattern, nbrow, nbcol).astype(np.int32)
+    shp = (nbrow, cols.shape[1], bm, bn)
+    blocks = rng.standard_normal(shp)
+    if dtype == "complex128":
+        blocks = blocks + 1j * rng.standard_normal(shp)
+    blocks = blocks.astype(dtype)
+    dense = np.zeros((nbrow * bm, nbcol * bn), blocks.dtype)
+    for i in range(nbrow):
+        for k in range(cols.shape[1]):
+            c = cols[i, k]
+            dense[i * bm:(i + 1) * bm, c * bn:(c + 1) * bn] += blocks[i, k]
     op = BSROperator(BSR(blocks=jnp.asarray(blocks),
-                         block_cols=jnp.asarray(cols),
-                         shape=(nbrow * bm, nbcol * bn)), backend="pallas")
-    assert op.win_q is not None, "plan must survive the lane rule"
-    assert op._win_packed is False  # R=16 % 128 != 0 under the seam
-    dense = np.zeros((nbrow * bm, nbcol * bn), np.float32)
-    for bi in range(nbrow):
-        for kk in range(kmax):
-            c = cols[bi, kk]
-            dense[bi * bm:(bi + 1) * bm, c * bn:(c + 1) * bn] += blocks[bi, kk]
-    v = rng.standard_normal(nbcol * bn).astype(np.float32)
-    u = rng.standard_normal(nbrow * bm).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(op @ v), dense @ v,
-                               rtol=3e-6, atol=3e-5)
-    np.testing.assert_allclose(np.asarray(op.T @ u), dense.T @ u,
-                               rtol=3e-6, atol=3e-5)
+                         block_cols=jnp.asarray(cols), shape=dense.shape))
+    ref_op = {"N": dense, "T": dense.T, "H": dense.conj().T}[mode]
+    v = rng.standard_normal(ref_op.shape[1]).astype(blocks.real.dtype)
+    got = np.asarray(op.apply(jnp.asarray(v), mode))
+    ref = ref_op @ v
+    rtol = 1e-5 if dtype == "float32" else 1e-12
+    assert got.dtype == blocks.dtype
+    assert np.linalg.norm(got - ref) <= rtol * np.linalg.norm(ref)
